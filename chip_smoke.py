@@ -9,15 +9,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
 2. build: every CUDA kernel of the port, one ``nvcc`` per source, started
    together, into ``image_caption_tpu_torch/_build/``;
 3. kernel check: each kernel against its plain PyTorch version on the card,
-   at the shapes the caption slice gives it, in float32 and bfloat16;
-4. times: each kernel, its plain version and one PyTorch library call for
-   the same function, by CUDA events (10 warm-up runs, median of 50), beside
-   the least time the card could take;
-5. slice: the flagship captioner at full width, random weights from
-   ``torch.Generator`` seed 0, decodes a 70-image split greedily and with
-   beam 3 through ``decode_split``; the kernel launch counts are read around
-   that run, and the first batch is decoded again on the CPU through the
-   plain path and compared.
+   in float32 and bfloat16: the forward at the serving shapes, the backward
+   at the four training shapes and a ragged case (fully masked rows give
+   exactly zero dq and finite dk, dv);
+4. gradient check: ``torch.autograd.grad`` through
+   ``sdp_attention(use_kernel=True)`` (the two kernels) and through the
+   plain path on the card agree for q, k and v;
+5. times: each kernel, its plain version and one PyTorch library call for
+   the same function (the backward's: ``scaled_dot_product_attention``'s
+   forward plus backward, minus its forward), by CUDA events (10 warm-up
+   runs, median of 50), beside the least time the card could take;
+6. slice (serving): the flagship captioner at full width, random weights
+   from ``torch.Generator`` seed 0, decodes a 70-image split greedily and
+   with beam 3 through ``decode_split``; the kernel launch counts are read
+   around that run, and the first batch is decoded again on the CPU through
+   the plain path and compared;
+7. train: the flagship's XE preset at full width with attention dropout 0
+   (residual dropout 0.3 stays on), batch 32, random weights: 20
+   ``Trainer.train_step`` calls on one batch (steps/s; the loss falls; each
+   kernel launched exactly 13 times a step), one step under the profiler;
+8. train loop: one epoch of ``train()`` on a synthetic dataset written to a
+   temporary directory (valid decode, scores file, checkpoint), then a
+   second ``train()`` call that resumes from that checkpoint;
+9. card vs CPU: the same weights with all dropout off, 3 train steps on the
+   card (kernels) and on the CPU (plain path): step-1 gradients within 1e-4
+   norm-relative per tensor, the three losses within 2e-4.
 
 It prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without CUDA it exits
@@ -27,14 +43,22 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 FLAGSHIP = "RL_maxlen49_36obj_1wordCount_256_25b_32h_split_img_obj"
+# the flagship's XE counterpart (same model, caption_model 'Transformer')
+XE_PRESET = "maxlen49_36obj_1wordCount_256_25b_32h_split_img_obj"
+TRAIN_STEPS = 20
+# fused attention calls per train step: 1 pair block + 2 encoder blocks +
+# 5 decoder self + 5 decoder cross
+LAUNCHES_PER_STEP = 13
 # H100 SXM data-sheet peaks: HBM bytes/s and float32 FLOP/s off the tensor
 # cores (the kernel computes in float32 on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -112,7 +136,7 @@ def on(case, device, dtype):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: kernel against its plain version
+# Phases 3-4: kernels against their plain versions, gradients
 # ---------------------------------------------------------------------------
 
 def check_kernel(device) -> float:
@@ -153,8 +177,123 @@ def check_kernel(device) -> float:
     return worst_f32
 
 
+def training_cases(batch: int = 32):
+    """Kernel #2's inputs at the XE preset's training shapes (batch 32, 37
+    slots, 50 caption tokens, 32 heads of 8), each with an output gradient
+    dO, and the ragged case.  Items 3 and 17 are all-zero images, whose rows
+    are fully masked in the encoder, pair and cross attention."""
+    slots, tokens, heads, head_dim = 37, 50, 32, 8
+    rng = np.random.RandomState(5)
+    pad = slot_pad(batch, slots, rng, zero_items=(3, 17))
+    lengths = rng.randint(3, tokens, size=batch)
+    tok_pad = np.arange(tokens)[None, :] > lengths[:, None]      # [B, T]
+    causal = np.triu(np.ones((tokens, tokens), bool), 1)[None]
+    cases = [
+        attention_case("a_encoder", batch, heads, slots, slots, head_dim,
+                       encoder_mask(pad), 11),
+        attention_case("b_pair", batch * slots, heads, 2, 2, head_dim,
+                       pair_mask(pad), 12),
+        attention_case("d_decoder_self", batch, heads, tokens, tokens,
+                       head_dim, tok_pad[:, None, :] | causal, 13),
+        attention_case("e_decoder_cross", batch, heads, tokens, slots,
+                       head_dim, np.repeat(pad[:, None, :], tokens, axis=1),
+                       14),
+        dict(kernel_cases()[2], name="c_ragged"),
+    ]
+    for i, case in enumerate(cases):
+        b, h, lq, _, dh = case["shape"]
+        case["do"] = np.random.RandomState(20 + i).randn(
+            b, h, lq, dh).astype(np.float32)
+    return cases
+
+
+def check_kernel_bwd(device) -> float:
+    """Kernel #2 against ``attention_bwd_reference`` on every training case
+    in float32 and bfloat16, the tolerance of ``check_kernel``; fully masked
+    rows must give exactly zero dq and every gradient must be finite.
+    Returns the largest float32 error."""
+    import torch
+    from image_caption_tpu_torch.ops.attention import (
+        attention_bwd_reference, fused_attention_bwd)
+    worst_f32 = 0.0
+    for case in training_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, m, t = on(case, device, dtype)
+            do = torch.from_numpy(case["do"]).to(device).to(dtype)
+            got = fused_attention_bwd(q, k, v, m, do, t)
+            want = attention_bwd_reference(q, k, v, m, do, t)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            tol = TOL[str(dtype).split(".")[1]]
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w.float()).abs()
+                errs.append(err.max().item())
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"non-finite {name} on "
+                                         f"{case['name']} {dtype}")
+                if bool((err > tol + tol * w.float().abs()).any()):
+                    raise AssertionError(
+                        f"fused_attention_bwd disagrees with "
+                        f"attention_bwd_reference on {case['name']} {dtype} "
+                        f"{name}: max error {err.max().item():.3e}")
+            dead = (m != 0).all(dim=-1)                  # [B, Lq]
+            dq_dead = got[0][dead[:, None, :, None].expand_as(got[0])]
+            if not bool((dq_dead == 0).all()):
+                raise AssertionError(f"fully masked rows give nonzero dq on "
+                                     f"{case['name']} {dtype}")
+            print(f"kernel check bwd {case['name']} {tuple(case['shape'])} "
+                  f"{dtype}: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} "
+                  f"dv {errs[2]:.3e} (tol {tol:g}), fully masked rows "
+                  f"{int(dead.sum())} x {case['shape'][1]} heads with dq 0",
+                  flush=True)
+            if dtype == torch.float32:
+                worst_f32 = max(worst_f32, *errs)
+    return worst_f32
+
+
+def check_gradients(device) -> float:
+    """``torch.autograd.grad`` through ``sdp_attention`` on the kernel route
+    and on the plain path, encoder case in float32 (items 3 and 17 fully
+    masked): the q, k and v gradients must agree within ``check_kernel``'s
+    tolerance, and on the card the kernel route must launch the backward
+    kernel.  Returns the largest error."""
+    import torch
+    from image_caption_tpu_torch.ops.attention import (fused_attention_bwd,
+                                                       sdp_attention)
+    case = training_cases()[0]
+    q, k, v, m, t = on(case, device, torch.float32)
+    do = torch.from_numpy(case["do"]).to(device)
+    grads = {}
+    for use_kernel in (True, False):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = fused_attention_bwd.launches
+        out, _ = sdp_attention(*leaves, m != 0, t, use_kernel=use_kernel,
+                               need_weights=False)
+        grads[use_kernel] = torch.autograd.grad(out, leaves, do)
+        launched = fused_attention_bwd.launches - before
+        if device != "cpu" and launched != int(use_kernel):
+            raise AssertionError(f"use_kernel={use_kernel}: {launched} "
+                                 f"backward kernel launches")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    tol = TOL["float32"]
+    worst = 0.0
+    for name, g, w in zip("qkv", grads[True], grads[False]):
+        err = (g - w).abs()
+        worst = max(worst, err.max().item())
+        if bool((err > tol + tol * w.abs()).any()) or \
+                not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"d{name} through the kernels differs from "
+                                 f"the plain path by {err.max().item():.3e}")
+    print(f"gradient check {tuple(case['shape'])} float32: autograd through "
+          f"sdp_attention, kernels vs plain path, max_abs_err {worst:.3e} "
+          f"(tol {tol:g})", flush=True)
+    return worst
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: times
+# Phase 5: times
 # ---------------------------------------------------------------------------
 
 def call_ms(fn, warmup: int = 10, reps: int = 50) -> float:
@@ -244,8 +383,68 @@ def time_kernel(card: str):
     return rows
 
 
+def bound_bwd(case, elem_bytes: int):
+    """Least time for the backward: q, k, v, dO and the mask read once, dq,
+    dk and dv written once, against the float32 operations the unmasked
+    pairs need (S, dP, dV, dQ and dK, 2*Dh each per pair and head)."""
+    b, h, lq, lk, dh = case["shape"]
+    nbytes = elem_bytes * b * h * dh * (3 * lq + 4 * lk) + b * lq * lk
+    flops = 10 * dh * h * int((case["mask"] == 0).sum())
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def time_kernel_bwd(card: str):
+    """Kernel #2 at the four training shapes in float32, and the encoder's
+    at batch 128: its device time and call time, the plain version's, and
+    the library yardstick, the backward of ``scaled_dot_product_attention``
+    (forward plus backward, minus forward; never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+    from image_caption_tpu_torch.ops.attention import (
+        attention_bwd_reference, fused_attention_bwd)
+    rows = {}
+    big = dict(training_cases(batch=128)[0], name="a_encoder_B128")
+    for case in training_cases()[:4] + [big]:
+        q, k, v, m, t = on(case, "cuda", torch.float32)
+        do = torch.from_numpy(case["do"]).cuda()
+        additive = torch.zeros(m.shape, device="cuda").masked_fill(
+            m != 0, float("-inf"))[:, None]
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+        def kernel():
+            return fused_attention_bwd(q, k, v, m, do, t)
+
+        def plain():
+            return attention_bwd_reference(q, k, v, m, do, t)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                *leaves, attn_mask=additive, scale=1.0 / t)
+
+        def lib_fwd_bwd():
+            return torch.autograd.grad(lib_fwd(), leaves, do)
+
+        fwd_ms = device_ms(lib_fwd)
+        row = {"shape": case["shape"], "ms": device_ms(kernel),
+               "plain_ms": device_ms(plain),
+               "library_ms": device_ms(lib_fwd_bwd) - fwd_ms,
+               "call_ms": call_ms(kernel)}
+        row["bound_ms"], row["bound_by"], row["bytes"] = bound_bwd(case, 4)
+        rows[case["name"]] = row
+        print(f"time bwd {case['name']} {tuple(case['shape'])} float32: "
+              f"kernel {row['ms']:.5f} ms on the device "
+              f"({row['call_ms']:.5f} ms a call with its launch), bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+              f"{row['bytes']} B), plain {row['plain_ms']:.5f} ms, sdpa "
+              f"backward {row['library_ms']:.5f} ms (fwd+bwd minus fwd "
+              f"{fwd_ms:.5f}) [{card}]", flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# Phase 5: the slice at full width
+# Phase 6: the serving slice at full width
 # ---------------------------------------------------------------------------
 
 def make_split(m, n_images: int, seed: int):
@@ -346,12 +545,21 @@ def drive_slice(cfg, device, card: str, *, n_images: int = 70,
     return launches
 
 
+def device_kernels(prof):
+    """The kernels alone from a profile: rows on the device that are not a
+    user annotation (``Optimizer.step``'s range on the device timeline
+    repeats the time of the kernels inside it)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_batch(model, cfg, split, batch_size, idx_to_word, card):
     """One batch of each decode under torch.profiler: the device's busy
     time (the kernels' own time) against the batch's time on the host
     clock without the profiler, and the kernels that take the most."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from image_caption_tpu_torch.serve import decode_split
     for label, beam in (("greedy", None), ("beam3", 3)):
@@ -369,9 +577,7 @@ def profile_batch(model, cfg, split, batch_size, idx_to_word, card):
                                  ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        # the kernels alone: an operator's row repeats its kernels' time
-        stats = [e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
+        stats = device_kernels(prof)
         busy_ms = sum(e.self_device_time_total for e in stats) / 1e3
         if busy_ms <= 0:
             print(f"profile {label}: the profiler saw no device time; "
@@ -432,6 +638,170 @@ def check_against_cpu(model, cfg, split, batch_size: int):
 
 
 # ---------------------------------------------------------------------------
+# Phases 7-9: training at full width
+# ---------------------------------------------------------------------------
+
+def train_batch(m, batch_size: int, seed: int):
+    """One train batch drawn as ``make_split`` draws a split."""
+    split = make_split(m, batch_size, seed)
+    return split.features, split.positions, split.captions
+
+
+def drive_train(cfg, card: str, device: str = "cuda"):
+    """20 ``Trainer.train_step`` calls on one batch; returns each kernel's
+    launches over them and the steps per second."""
+    from image_caption_tpu_torch.ops.attention import (fused_attention,
+                                                       fused_attention_bwd)
+    from image_caption_tpu_torch.train.loop import Trainer
+    trainer = Trainer(cfg, device=device)
+    batch = train_batch(cfg.model, cfg.train.batch_size, seed=2)
+    fused_attention.launches = fused_attention_bwd.launches = 0
+    losses, seconds = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(*batch)["loss"])
+        seconds.append(time.perf_counter() - t0)
+    launches = {"fused_attention": fused_attention.launches,
+                "fused_attention_bwd": fused_attention_bwd.launches}
+    print(f"train: losses {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    print(f"train: launches over {TRAIN_STEPS} steps {launches}, want "
+          f"{LAUNCHES_PER_STEP} x {TRAIN_STEPS} each", flush=True)
+    want = LAUNCHES_PER_STEP * TRAIN_STEPS
+    if device != "cpu" and any(n != want for n in launches.values()):
+        raise AssertionError(f"kernel launches {launches}, want {want}")
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    steady = seconds[1:]
+    sps = len(steady) / sum(steady)
+    print(f"train: {sps:.3f} steps/s at batch {cfg.train.batch_size} over "
+          f"steps 2-{TRAIN_STEPS} (first step {seconds[0]:.3f} s, median "
+          f"{statistics.median(steady) * 1e3:.2f} ms) [{card}]", flush=True)
+    if device != "cpu":
+        profile_train_step(trainer, batch, card)
+    return launches, sps
+
+
+def profile_train_step(trainer, batch, card: str):
+    """One train step under torch.profiler: the device's busy time (the
+    kernels' own time) against the step's time on the host clock without
+    the profiler, and the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trainer.train_step(*batch)
+        walls.append(time.perf_counter() - t0)
+    wall_ms = 1e3 * statistics.median(walls)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+    stats = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in stats) / 1e3
+    if busy_ms <= 0:
+        print("profile train step: the profiler saw no device time; device "
+              "busy share not measured", flush=True)
+        return
+    print(f"profile train step, batch {trainer.cfg.train.batch_size}: "
+          f"{wall_ms:.2f} ms on the host clock, device busy {busy_ms:.2f} "
+          f"ms, idle share {1 - busy_ms / wall_ms:.4f} [{card}]", flush=True)
+    top = sorted(stats, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    ours = [e for e in stats if "fused_attention" in e.key]
+    for e in top + [e for e in ours if e not in top]:
+        print(f"profile train step:   {e.self_device_time_total / 1e3:9.3f}"
+              f" ms  x{e.count:<6d} {e.key[:90]}", flush=True)
+
+
+def drive_train_loop(cfg, card: str, device: str = "cuda"):
+    """One epoch of ``train()`` on a synthetic dataset (feature files as
+    ``.npy``: the card's machine may lack ``h5py``), then a second call that
+    resumes from its checkpoint and trains epoch 2.  The model is ``cfg``'s
+    at full width, with the dataset's vocabulary."""
+    from image_caption_tpu_torch.data.synthetic import \
+        generate_synthetic_dataset
+    from image_caption_tpu_torch.train.checkpoint import CheckpointManager
+    from image_caption_tpu_torch.train.loop import train
+    from image_caption_tpu_torch.utils.io import load_pickle
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        vocab = generate_synthetic_dataset(data, feature_format="npy")
+        # the model's vocabulary is the dataset's (36 words)
+        run = cfg.with_overrides(**{"model.num_vocab": len(vocab),
+                                    "data.data_path": data,
+                                    "data.output_path": out,
+                                    "train.log_every": 2,
+                                    "train.sample_every": 4})
+        steps_per_epoch = -(-120 // run.train.batch_size)
+        for epochs in (1, 2):
+            t0 = time.perf_counter()
+            state = train(run, num_epochs=epochs, device=device)
+            seconds = time.perf_counter() - t0
+            with open(os.path.join(out, "valid_scores.txt")) as f:
+                scores = f.read()
+            caps = load_pickle(os.path.join(
+                out, "candidates", "valid.candidate.captions.pkl"))
+            saved = CheckpointManager(os.path.join(out, "model")).all_epochs()
+            print(f"train loop: epoch {epochs} in {seconds:.2f} s, step "
+                  f"{state.step}, checkpoints {saved}, {len(caps)} valid "
+                  f"captions, scores file epochs "
+                  f"{scores.count('Epoch ')} [{card}]", flush=True)
+            if (state.step != epochs * steps_per_epoch
+                    or saved != list(range(1, epochs + 1))
+                    or scores.count("Epoch ") != epochs or len(caps) != 8
+                    or "valid_CIDEr" not in scores):
+                raise AssertionError(f"train() after {epochs} epoch(s): "
+                                     f"step {state.step}, checkpoints "
+                                     f"{saved}, scores:\n{scores}")
+        print("train loop: scores of epoch 2: "
+              + "; ".join(scores.split("Epoch 2")[1].strip().splitlines()),
+              flush=True)
+
+
+def train_against_cpu(cfg, card: str, device: str = "cuda"):
+    """The same initial weights with all dropout off: 3 train steps on the
+    card (the kernels) and on the CPU (the plain path).  Step-1 gradients
+    within 1e-4 norm-relative per tensor, the three losses within 2e-4."""
+    import torch
+    from image_caption_tpu_torch.train.loop import Trainer
+    from image_caption_tpu_torch.train.step import train_step
+    off = cfg.with_overrides(**{"model.dropout": 0.0,
+                                "model.attention_dropout": 0.0})
+    gpu = Trainer(off, device=device, seed=3)
+    cpu = Trainer(off, device="cpu", seed=3)
+    cpu.state.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.state.model.state_dict().items()})
+    batch = train_batch(off.model, off.train.batch_size, seed=4)
+    worst_grad, worst_loss = 0.0, 0.0
+    for step in range(3):
+        lg = train_step(gpu.state, gpu.to_device(batch), seed=0,
+                        use_kernel=True)["loss"].item()
+        lc = train_step(cpu.state, cpu.to_device(batch), seed=0,
+                        use_kernel=False)["loss"].item()
+        worst_loss = max(worst_loss, abs(lg - lc))
+        print(f"card vs cpu: step {step + 1} loss {lg:.6f} vs {lc:.6f}",
+              flush=True)
+        if step == 0:
+            want = dict(cpu.state.model.named_parameters())
+            for name, p in gpu.state.model.named_parameters():
+                g, w = p.grad.cpu(), want[name].grad
+                rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+                worst_grad = max(worst_grad, rel)
+                if not rel <= 1e-4:
+                    raise AssertionError(f"step-1 gradient of {name}: "
+                                         f"norm-relative error {rel:.3e}")
+    print(f"card vs cpu: step-1 gradients norm-relative max {worst_grad:.3e}"
+          f" (tol 1e-4), losses max_abs_err {worst_loss:.3e} (tol 2e-4) "
+          f"[{card}]", flush=True)
+    if not worst_loss <= 2e-4:
+        raise AssertionError(f"card and CPU losses differ by {worst_loss}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -460,21 +830,47 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}", flush=True)
 
     max_err = check_kernel("cuda")
+    max_err_bwd = check_kernel_bwd("cuda")
+    check_gradients("cuda")
     times = time_kernel(card)
-    launches = drive_slice(get_preset(FLAGSHIP), "cuda", card)
+    times_bwd = time_kernel_bwd(card)
 
-    main_shape = times["a_encoder"]
-    kernels = [{
-        "name": "fused_attention", "route": "cuda",
-        "source": "image_caption_tpu_torch/csrc/fused_attention.cu",
-        "replaces": "image_caption_tpu/ops/attention.py:89",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "shapes": times,
-    }]
+    from image_caption_tpu_torch.ops.attention import (fused_attention,
+                                                       fused_attention_bwd)
+    fused_attention.launches = fused_attention_bwd.launches = 0
+    serve_launches = drive_slice(get_preset(FLAGSHIP), "cuda", card)
+    if fused_attention_bwd.launches != 0:
+        raise AssertionError("serving launched the backward kernel")
+    xe = get_preset(XE_PRESET).with_overrides(
+        **{"model.attention_dropout": 0.0})
+    train_launches, _ = drive_train(xe, card)
+    drive_train_loop(xe, card)
+    train_against_cpu(xe, card)
+
+    def entry(name, source, replaces, launches, by_path, err, rows):
+        main_shape = rows["a_encoder"]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "launches_by_path": by_path, "max_abs_err": err,
+                "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+                "bound_ms": main_shape["bound_ms"],
+                "bound_by": main_shape["bound_by"],
+                "library_ms": main_shape["library_ms"], "shapes": rows}
+
+    fwd_train = train_launches["fused_attention"]
+    kernels = [
+        entry("fused_attention",
+              "image_caption_tpu_torch/csrc/fused_attention.cu",
+              "image_caption_tpu/ops/attention.py:89",
+              serve_launches + fwd_train,
+              {"serve": serve_launches, "train": fwd_train}, max_err, times),
+        entry("fused_attention_bwd",
+              "image_caption_tpu_torch/csrc/fused_attention_bwd.cu",
+              "image_caption_tpu/ops/attention.py:125",
+              train_launches["fused_attention_bwd"],
+              {"serve": 0, "train": train_launches["fused_attention_bwd"]},
+              max_err_bwd, times_bwd),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

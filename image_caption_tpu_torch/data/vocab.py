@@ -1,12 +1,57 @@
-"""Detokenization with the reference's rules (core/utils.py:67-103)."""
+"""Vocabulary building, caption vectorization and detokenization, with the
+reference's rules:
+
+  * ``build_vocab``          — core/preprocess.py:283-311
+  * ``build_caption_vector`` — core/preprocess.py:314-345
+  * ``decode_captions``      — core/utils.py:67-103
+"""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from collections import Counter
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 
-from ..config import END_TOKEN, NULL_TOKEN, START_TOKEN
+from ..config import (END_IDX, END_TOKEN, NULL_IDX, NULL_TOKEN, START_IDX,
+                      START_TOKEN, UNK_IDX, UNK_TOKEN)
+from .tokenizer import ptb_tokenize
+
+
+def build_vocab(captions: Iterable[str], threshold: int = 1,
+                tokenize=ptb_tokenize) -> Dict[str, int]:
+    """Count tokens across captions and keep those seen ``threshold`` times
+    or more.  The special tokens take indices 0..3; words follow from 4 in
+    first-seen order (core/preprocess.py:297-307)."""
+    counts: Counter = Counter()
+    for caption in captions:
+        counts.update(tokenize(caption))
+    word_index = {NULL_TOKEN: NULL_IDX, START_TOKEN: START_IDX,
+                  END_TOKEN: END_IDX, UNK_TOKEN: UNK_IDX}
+    index = 4
+    for word in counts:
+        if counts[word] >= threshold:
+            word_index[word] = index
+            index += 1
+    return word_index
+
+
+def build_caption_vector(captions: Sequence[str], word_index: Dict[str, int],
+                         max_length: int = 49,
+                         tokenize=ptb_tokenize) -> np.ndarray:
+    """``<START> tokens <END>`` padded with ``<NULL>`` to ``max_length + 2``
+    int32 slots (core/preprocess.py:314-345)."""
+    out = np.zeros((len(captions), max_length + 2), dtype=np.int32)
+    for i, caption in enumerate(captions):
+        vec = [word_index[START_TOKEN]]
+        vec += [word_index.get(w, word_index[UNK_TOKEN])
+                for w in tokenize(caption)]
+        vec.append(word_index[END_TOKEN])
+        if len(vec) > max_length + 2:
+            raise ValueError(f"caption {i} longer than max_length="
+                             f"{max_length}: {caption!r}")
+        out[i, :len(vec)] = vec
+    return out
 
 
 def invert_vocab(word_index: Dict[str, int]) -> Dict[int, str]:

@@ -16,18 +16,24 @@ Reference quirks kept, each behind its config flag (see the JAX package's
     position through a tail FFN (model.py:451-457);
   * the decoder positional table spans ``max_length - 1`` positions
     (model.py:383).
+
+``Captioner.forward`` is the differentiable teacher-forced forward of
+training, with dropout at the config's rates when a generator is given;
+``Captioner.logits`` is its deterministic, gradient-free form for serving.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ..config import ModelConfig
 from ..ops import masks as M
+from ..ops.attention import dropout
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.rng import split
 from . import layers as L
 
 
@@ -59,7 +65,9 @@ class Encoder(nn.Module):
         def block():
             return L.EncoderBlock(d, cfg.encode_hidden_size,
                                   cfg.encode_num_heads, cfg.encode_q_k_dim,
-                                  cfg.encode_v_dim, generator=generator)
+                                  cfg.encode_v_dim, generator=generator,
+                                  dropout_rate=cfg.dropout,
+                                  attention_dropout=cfg.attention_dropout)
 
         if cfg.split_image_objects:
             self.image_encoder = block()
@@ -69,9 +77,12 @@ class Encoder(nn.Module):
 
     def forward(self, object_features: torch.Tensor,
                 position_features: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True,
                 use_kernel: bool = False, need_weights: bool = False):
         """Returns (output [B, S, D], per-block attention weights or Nones)."""
         cfg = self.cfg
+        gens = split(generator, cfg.encode_num_blocks + 1)
         if cfg.split_image_objects:
             b, s, df = object_features.shape
             dp = position_features.shape[-1]
@@ -94,6 +105,7 @@ class Encoder(nn.Module):
             out = self.norm(emb_f + emb_p)
             out, _ = self.image_encoder(
                 out, non_pad_mask=non_pad, attention_mask=pair_mask,
+                generator=gens[0], deterministic=deterministic,
                 use_kernel=use_kernel, need_weights=False)
             d = out.shape[-1]
             output = out[:, 1, :].reshape(b, s, d) + \
@@ -121,15 +133,13 @@ class Encoder(nn.Module):
             M.subsequent_mask(b, s, device=position_features.device))
 
         attentions = []
-        for block in self.encoder:
-            if cfg.encode_mask:
-                output, attn = block(output, non_pad_mask=non_pad,
-                                     attention_mask=self_mask,
-                                     use_kernel=use_kernel,
-                                     need_weights=need_weights)
-            else:
-                output, attn = block(output, use_kernel=use_kernel,
-                                     need_weights=need_weights)
+        for i, block in enumerate(self.encoder):
+            masks = (dict(non_pad_mask=non_pad, attention_mask=self_mask)
+                     if cfg.encode_mask else {})
+            output, attn = block(output, **masks, generator=gens[1 + i],
+                                 deterministic=deterministic,
+                                 use_kernel=use_kernel,
+                                 need_weights=need_weights)
             attentions.append(attn)
         return output, attentions
 
@@ -151,7 +161,8 @@ class Decoder(nn.Module):
         self.decoder = nn.ModuleList(
             L.DecoderBlock(d, cfg.decode_hidden_size, cfg.decode_num_heads,
                            cfg.decode_q_k_dim, cfg.decode_v_dim,
-                           generator=generator)
+                           generator=generator, dropout_rate=cfg.dropout,
+                           attention_dropout=cfg.attention_dropout)
             for _ in range(cfg.decode_num_blocks))
         if cfg.move_first_image_feature:
             self.position_wise_1 = L.Linear(
@@ -178,21 +189,27 @@ class Decoder(nn.Module):
         return self.norm(x)
 
     def move_first_image_feature(self, decode_output: torch.Tensor,
-                                 encode_output: torch.Tensor) -> torch.Tensor:
-        """Tail FFN adding encoder slot 0 to every position
+                                 encode_output: torch.Tensor, *,
+                                 generator: Optional[torch.Generator] = None,
+                                 deterministic: bool = True) -> torch.Tensor:
+        """Tail FFN adding encoder slot 0 to every position, with dropout
         (model.py:451-457)."""
         first = encode_output[:, :1]
         h = torch.relu(self.position_wise_1(decode_output + first))
         h = self.position_wise_2(h)
+        h = dropout(h, self.cfg.dropout, generator, deterministic)
         return self.layer_norm(h + decode_output)
 
     def forward(self, caption_vector: torch.Tensor,
                 encode_output: torch.Tensor, *,
                 context_attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True,
                 use_kernel: bool = False, need_weights: bool = False):
         """caption_vector [B, T] int -> ([B, T, D], self_attn, cross_attn)
         (model.py:419-459); the weights are the last block's."""
         cfg = self.cfg
+        gens = split(generator, cfg.decode_num_blocks + 1)
         b, t = caption_vector.shape
         non_pad = M.non_pad_mask_from_tokens(caption_vector, cfg.pad_idx)
         self_mask = M.combine_masks(
@@ -201,14 +218,17 @@ class Decoder(nn.Module):
 
         x = self.embed(caption_vector, compute_dtype(cfg))
         self_attn = cross_attn = None
-        for block in self.decoder:
+        for i, block in enumerate(self.decoder):
             x, self_attn, cross_attn = block(
                 x, encode_output, non_pad_mask=non_pad,
                 self_attention_mask=self_mask,
                 context_attention_mask=context_attention_mask,
+                generator=gens[i], deterministic=deterministic,
                 use_kernel=use_kernel, need_weights=need_weights)
         if cfg.move_first_image_feature:
-            x = self.move_first_image_feature(x, encode_output)
+            x = self.move_first_image_feature(
+                x, encode_output, generator=gens[-1],
+                deterministic=deterministic)
         return x, self_attn, cross_attn
 
 
@@ -239,11 +259,15 @@ class Captioner(nn.Module):
     def device(self) -> torch.device:
         return self.classifer.weight.device
 
-    @torch.no_grad()
-    def logits(self, object_features, position_features, target_caption, *,
-               use_kernel: bool = False) -> torch.Tensor:
+    def forward(self, object_features, position_features, target_caption,
+                *, generator: Optional[torch.Generator] = None,
+                deterministic: bool = True,
+                use_kernel: bool = False) -> torch.Tensor:
         """Teacher-forced forward: f32 logits over ``target[:, :-1]``
-        (model.py:79-93), [B, T-1, V]."""
+        (model.py:79-93), [B, T-1, V], differentiable.  Dropout runs at the
+        config's rates when ``generator`` (on the model's device) is given
+        and ``deterministic`` is False; the counterpart of the JAX
+        package's ``captioner_logits``."""
         dev = self.device
         object_features = torch.as_tensor(object_features, device=dev)
         position_features = torch.as_tensor(position_features, device=dev)
@@ -251,16 +275,26 @@ class Captioner(nn.Module):
                                         device=dev)[:, :-1].long()
         context_mask = M.key_pad_mask_from_features(position_features,
                                                     input_caption.shape[1])
+        enc_gen, dec_gen = split(generator, 2)
         dtype = compute_dtype(self.cfg)
         encode_output, _ = self.encoder(object_features.to(dtype),
                                         position_features.to(dtype),
+                                        generator=enc_gen,
+                                        deterministic=deterministic,
                                         use_kernel=use_kernel)
         decode_output, _, _ = self.decoder(
             input_caption, encode_output,
-            context_attention_mask=context_mask, use_kernel=use_kernel)
+            context_attention_mask=context_mask, generator=dec_gen,
+            deterministic=deterministic, use_kernel=use_kernel)
         return self.classifer(decode_output.float())
 
-    forward = logits
+    @torch.no_grad()
+    def logits(self, object_features, position_features, target_caption, *,
+               use_kernel: bool = False) -> torch.Tensor:
+        """``forward`` without dropout or gradient, for serving."""
+        return self.forward(object_features, position_features,
+                            target_caption, deterministic=True,
+                            use_kernel=use_kernel)
 
 
 def cross_entropy_ignore_pad(logits: torch.Tensor, targets: torch.Tensor,
@@ -281,3 +315,21 @@ def focal_loss_from_ce(ce_mean: torch.Tensor,
     pt = exp(-CE); (1-pt)^gamma * CE."""
     pt = torch.exp(-ce_mean)
     return (1.0 - pt) ** gamma * ce_mean
+
+
+def xe_loss(model: Captioner, object_features, position_features,
+            target_caption, *, generator: Optional[torch.Generator] = None,
+            deterministic: bool = True,
+            use_kernel: bool = False) -> Dict[str, torch.Tensor]:
+    """XE or focal training loss (model.py:79-98), the counterpart of the
+    JAX package's ``captioner_xe_loss``: the mean CE over non-pad targets,
+    or the focal loss on that mean when ``cfg.xe_loss == 'focal'``."""
+    cfg = model.cfg
+    logits = model(object_features, position_features, target_caption,
+                   generator=generator, deterministic=deterministic,
+                   use_kernel=use_kernel)
+    targets = torch.as_tensor(target_caption, device=model.device)[:, 1:]
+    ce = cross_entropy_ignore_pad(logits, targets, cfg.pad_idx)
+    if cfg.xe_loss == "focal":
+        return {"loss": focal_loss_from_ce(ce, cfg.focal_gamma)}
+    return {"loss": ce}

@@ -6,13 +6,17 @@ reference's state_dict names (modules.py:30-206): ``q_linear``,
 as torch stores them.
 
 Semantics follow the JAX package's ``models/layers.py``:
-  * MultiHeadAttention — bias-free projections, post-norm residual
-    ``LayerNorm(joint(attn) + q)``, temperature sqrt(head dim);
-  * FeedForward — Linear-ReLU-Linear with bias, post-norm residual;
+  * MultiHeadAttention — bias-free projections, dropout on the attention
+    weights, post-norm residual ``LayerNorm(dropout(joint(attn)) + q)``,
+    temperature sqrt(head dim);
+  * FeedForward — Linear-ReLU-Linear with bias, dropout, post-norm
+    residual;
   * EncoderBlock / DecoderBlock — pad rows zeroed after the FFN.
 
-The modules compute the forward pass only; dropout (a training feature)
-is not applied.  Every initializer takes a CPU ``torch.Generator``.
+Dropout runs where the JAX package's runs, at the module's rates, when a
+``generator`` is given and ``deterministic`` is False.  The generator is
+split per site as the JAX code splits its rng (``utils/rng.split``).  Every
+initializer takes a CPU ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import sdp_attention
+from ..ops.attention import dropout, sdp_attention
+from ..utils.rng import split
 
 
 # ---------------------------------------------------------------------------
@@ -120,13 +125,16 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """Post-norm residual MHA: ``LayerNorm(joint(attn) + q_in)``
+    """Post-norm residual MHA: ``LayerNorm(dropout(joint(attn)) + q_in)``
     (modules.py:30-92)."""
 
     def __init__(self, input_size: int, q_k_dim: int, v_dim: int,
-                 num_heads: int, *, generator: torch.Generator):
+                 num_heads: int, *, generator: torch.Generator,
+                 dropout_rate: float = 0.0, attention_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.attention_dropout = attention_dropout
 
         def lin(i, o):
             return Linear(i, o, bias=False, generator=generator,
@@ -139,26 +147,35 @@ class MultiHeadAttention(nn.Module):
         self.joint_linear = lin(v_dim, input_size)
         self.layer_norm = LayerNorm(input_size)
 
-    def forward(self, q_in, k_in, v_in, mask, *, use_kernel: bool = False,
+    def forward(self, q_in, k_in, v_in, mask, *,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True, use_kernel: bool = False,
                 need_weights: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         q = split_heads(self.q_linear(q_in), self.num_heads)
         k = split_heads(self.k_linear(k_in), self.num_heads)
         v = split_heads(self.v_linear(v_in), self.num_heads)
         temperature = math.sqrt(q.shape[-1])
+        attn_gen, out_gen = split(generator, 2)
         out, attn = sdp_attention(q, k, v, mask, temperature,
+                                  dropout_rate=self.attention_dropout,
+                                  generator=attn_gen,
+                                  deterministic=deterministic,
                                   use_kernel=use_kernel,
                                   need_weights=need_weights)
         out = self.joint_linear(merge_heads(out))
+        out = dropout(out, self.dropout_rate, out_gen, deterministic)
         return self.layer_norm(out + q_in), attn
 
 
 class FeedForward(nn.Module):
-    """Linear-ReLU-Linear, post-norm residual (modules.py:95-122)."""
+    """Linear-ReLU-Linear, dropout, post-norm residual
+    (modules.py:95-122)."""
 
     def __init__(self, input_size: int, hidden_size: int, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.position_wise_1 = Linear(input_size, hidden_size, bias=True,
                                       generator=generator,
                                       kernel_init=normal_fan_sum)
@@ -167,9 +184,12 @@ class FeedForward(nn.Module):
                                       kernel_init=normal_fan_sum)
         self.layer_norm = LayerNorm(input_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True) -> torch.Tensor:
         h = torch.relu(self.position_wise_1(x))
         h = self.position_wise_2(h)
+        h = dropout(h, self.dropout_rate, generator, deterministic)
         return self.layer_norm(h + x)
 
 
@@ -177,19 +197,27 @@ class EncoderBlock(nn.Module):
     """modules.py:125-157: MHA -> FFN -> pad rows zeroed."""
 
     def __init__(self, input_size: int, hidden_size: int, num_heads: int,
-                 q_k_dim: int, v_dim: int, *, generator: torch.Generator):
+                 q_k_dim: int, v_dim: int, *, generator: torch.Generator,
+                 dropout_rate: float = 0.0, attention_dropout: float = 0.0):
         super().__init__()
         self.multihead_attention = MultiHeadAttention(
-            input_size, q_k_dim, v_dim, num_heads, generator=generator)
+            input_size, q_k_dim, v_dim, num_heads, generator=generator,
+            dropout_rate=dropout_rate, attention_dropout=attention_dropout)
         self.feed_forward = FeedForward(input_size, hidden_size,
-                                        generator=generator)
+                                        generator=generator,
+                                        dropout_rate=dropout_rate)
 
     def forward(self, x, *, non_pad_mask=None, attention_mask=None,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True,
                 use_kernel: bool = False, need_weights: bool = True):
+        g1, g2 = split(generator, 2)
         out, attn = self.multihead_attention(
-            x, x, x, attention_mask, use_kernel=use_kernel,
+            x, x, x, attention_mask, generator=g1,
+            deterministic=deterministic, use_kernel=use_kernel,
             need_weights=need_weights)
-        out = self.feed_forward(out)
+        out = self.feed_forward(out, generator=g2,
+                                deterministic=deterministic)
         if non_pad_mask is not None:
             out = out * non_pad_mask.to(out.dtype)
         return out, attn
@@ -200,25 +228,37 @@ class DecoderBlock(nn.Module):
     zeroed."""
 
     def __init__(self, input_size: int, hidden_size: int, num_heads: int,
-                 q_k_dim: int, v_dim: int, *, generator: torch.Generator):
+                 q_k_dim: int, v_dim: int, *, generator: torch.Generator,
+                 dropout_rate: float = 0.0, attention_dropout: float = 0.0):
         super().__init__()
+        rates = dict(dropout_rate=dropout_rate,
+                     attention_dropout=attention_dropout)
         self.self_attention = MultiHeadAttention(
-            input_size, q_k_dim, v_dim, num_heads, generator=generator)
+            input_size, q_k_dim, v_dim, num_heads, generator=generator,
+            **rates)
         self.encode_attention = MultiHeadAttention(
-            input_size, q_k_dim, v_dim, num_heads, generator=generator)
+            input_size, q_k_dim, v_dim, num_heads, generator=generator,
+            **rates)
         self.feed_forward = FeedForward(input_size, hidden_size,
-                                        generator=generator)
+                                        generator=generator,
+                                        dropout_rate=dropout_rate)
 
     def forward(self, x, encode_output, *, non_pad_mask=None,
                 self_attention_mask=None, context_attention_mask=None,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True,
                 use_kernel: bool = False, need_weights: bool = True):
+        g1, g2, g3 = split(generator, 3)
         out, self_attn = self.self_attention(
-            x, x, x, self_attention_mask, use_kernel=use_kernel,
+            x, x, x, self_attention_mask, generator=g1,
+            deterministic=deterministic, use_kernel=use_kernel,
             need_weights=need_weights)
         out, cross_attn = self.encode_attention(
             out, encode_output, encode_output, context_attention_mask,
+            generator=g2, deterministic=deterministic,
             use_kernel=use_kernel, need_weights=need_weights)
-        out = self.feed_forward(out)
+        out = self.feed_forward(out, generator=g3,
+                                deterministic=deterministic)
         if non_pad_mask is not None:
             out = out * non_pad_mask.to(out.dtype)
         return out, self_attn, cross_attn

@@ -1,17 +1,20 @@
-"""Pickle and hickle-compatible array reading.
+"""Pickles, hickle-compatible arrays and ``.npy`` arrays.
 
 The reference caches features as hickle (HDF5) arrays and metadata as
-pickles (``core/utils.py:17-64``).  ``load_hkl``/``open_hkl`` read that
-format through ``h5py``: hickle v3/v4 store a single numpy array as an HDF5
-dataset, named ``data`` or ``data_0``, at the root or under a ``data`` group.
-``h5py`` is imported inside the functions, so the package imports on a
-machine without it.
+pickles (``core/utils.py:17-64``).  ``load_hkl``/``open_hkl``/``save_hkl``
+speak that format through ``h5py``: hickle v3/v4 store a single numpy array
+as an HDF5 dataset, named ``data`` or ``data_0``, at the root or under a
+``data`` group; ``save_hkl`` writes a root-level ``data`` dataset.  ``h5py``
+is imported inside the functions, so the package imports on a machine
+without it.  A feature file may also be a plain ``.npy`` array, which needs
+no ``h5py`` (``data/dataset.load_split`` reads either).
 """
 
 from __future__ import annotations
 
+import os
 import pickle
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -21,6 +24,12 @@ def load_pickle(path: str) -> Any:
     files only)."""
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def save_pickle(data: Any, path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(data, f, pickle.HIGHEST_PROTOCOL)
 
 
 def _first_dataset(h5node):
@@ -95,3 +104,27 @@ class HklDataset:
 def open_hkl(path: str, dtype=None) -> HklDataset:
     """Open a feature file for streamed (sliced) reads."""
     return HklDataset(path, dtype=dtype)
+
+
+def save_hkl(array: np.ndarray, path: str,
+             compression: Optional[str] = "gzip") -> None:
+    """Write one array as a hickle-readable HDF5 file, one chunk per row so
+    that streamed row gathers touch one chunk per image."""
+    import h5py
+    array = np.asarray(array)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    chunks = (1,) + array.shape[1:] if array.ndim >= 2 and len(array) \
+        else None
+    with h5py.File(path, "w") as f:
+        f.create_dataset("data", data=array, compression=compression,
+                         chunks=chunks)
+
+
+def save_array(array: np.ndarray, path: str) -> None:
+    """A feature file by its suffix: ``.npy`` through numpy, anything else
+    as hickle (``save_hkl``)."""
+    if path.endswith(".npy"):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.save(path, np.asarray(array))
+    else:
+        save_hkl(array, path)
