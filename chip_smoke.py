@@ -33,7 +33,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
    second ``train()`` call that resumes from that checkpoint;
 9. card vs CPU: the same weights with all dropout off, 3 train steps on the
    card (kernels) and on the CPU (plain path): step-1 gradients within 1e-4
-   norm-relative per tensor, the three losses within 2e-4.
+   norm-relative per tensor, the three losses within 2e-4;
+10. kernel check bottleneck: kernels #3 (one block) and #4 (a whole
+    identity run) against ``bottleneck_reference`` and ``stage_reference``
+    at ResNet-101's four identity runs (2, 3, 22 and 2 blocks) on 192, 5
+    and 1 crops, within 1e-4 (f32) and 3e-2 (bf16) x max|ref|;
+11. time bottleneck: per run at 192 crops, each kernel's device and call
+    time beside its bound, its plain version and the cuDNN yardstick (the
+    same blocks as channels-last ``F.conv2d`` with the epilogues);
+12. extract: ``extract_features_batch`` at full width (YOLOv5x at 640,
+    ResNet-101 at 224, random weights from seed 0) on the flagship's slot
+    contract (36 objects, ``cap_half``, ``max_obj`` 5), bf16, 70 images in
+    batches of 32: images/s on both ResNet routes, exactly 4 launches of
+    kernel #4 per batch, the two routes' features and detections compared;
+    one batch under the profiler;
+13. caption: ``caption_images`` on 70 JPEGs with the flagship captioner at
+    full width, greedy and beam 3: images/s end to end, 3 launches of
+    kernel #1 and 4 of kernel #4 per batch; one greedy run under the
+    profiler;
+14. cpu check extract: 2 images at full width in float32, the card on the
+    kernel route against the CPU on the plain route from the same weights:
+    detections equal (except after a pick whose CPU score margin is below
+    1e-4), features within 1e-3 x max|ref|.
 
 It prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without CUDA it exits
@@ -64,6 +85,17 @@ LAUNCHES_PER_STEP = 13
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+PEAK_BF16_FLOPS = 989e12              # dense, tensor cores
+# ResNet-101's identity runs at 224-px crops: (name, H=W, C, Wd, blocks)
+RESNET101_RUNS = (("stage1", 56, 256, 64, 2), ("stage2", 28, 512, 128, 3),
+                  ("stage3", 14, 1024, 256, 22), ("stage4", 7, 2048, 512, 2))
+# crops per extraction batch: 32 images x (the whole image + max_obj 5)
+CROPS = 192
+BOTTLENECK_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # x max|ref|
+EXTRACT_IMAGES, EXTRACT_BATCH = 70, 32
+# bf16 features of the kernel route (f32 epilogues) against the cuDNN
+# route (BN in bf16), 33 bottlenecks deep: x max|ref|
+EXTRACT_ROUTE_TOL = 5e-2
 
 
 def card_line() -> str:
@@ -802,6 +834,541 @@ def train_against_cpu(cfg, card: str, device: str = "cuda"):
 
 
 # ---------------------------------------------------------------------------
+# Phases 10-11: the bottleneck kernels (#3, #4), checked and timed
+# ---------------------------------------------------------------------------
+
+def bottleneck_weights(run, seed: int, device):
+    """Stacked weights for one identity run (name, H, C, Wd, blocks):
+    kaiming-normal convs and random folded BN as a trained net has them
+    (the expand BN's scale small), f32 as the parameters are kept."""
+    import torch
+    _, _, c, wd, nblk = run
+    g = torch.Generator().manual_seed(seed)
+    w1 = torch.randn(nblk, wd, c, generator=g) * (2.0 / wd) ** 0.5
+    w2 = torch.randn(nblk, wd, wd, 3, 3, generator=g) * (2.0 / (9 * wd)) ** 0.5
+    w3 = torch.randn(nblk, c, wd, generator=g) * (2.0 / c) ** 0.5
+
+    def sb(n, lo, span):
+        return torch.stack([torch.rand(nblk, n, generator=g) * span + lo,
+                            torch.randn(nblk, n, generator=g) * 0.1], 1)
+    return [t.to(device) for t in (w1, sb(wd, 0.5, 1.0), w2, sb(wd, 0.5, 1.0),
+                                   w3, sb(c, 0.0, 0.2), )]
+
+
+def bottleneck_input(run, n: int, seed: int, device, dtype):
+    """Post-relu activations [n, C, H, H] in channels_last memory."""
+    import torch
+    _, h, c, _, _ = run
+    g = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn(n, c, h, h, generator=g)).to(dtype)
+    return x.to(device).contiguous(memory_format=torch.channels_last)
+
+
+def block_args(ws, i: int = 0):
+    """fused_bottleneck's arguments for block ``i`` of stacked weights."""
+    w1, sb1, w2, sb2, w3, sb3 = ws
+    return (w1[i], sb1[i, 0], sb1[i, 1], w2[i], sb2[i, 0], sb2[i, 1], w3[i],
+            sb3[i, 0], sb3[i, 1])
+
+
+def check_bottleneck(device, runs=RESNET101_RUNS, crops=(CROPS, 5, 1)):
+    """Kernels #3 (the run's first block) and #4 (the whole run) against
+    ``bottleneck_reference`` and ``stage_reference`` on the same inputs,
+    every identity run of ResNet-101 at ``crops`` crops, in float32 and
+    bfloat16.  Tolerance: max error <= tol x max|ref|.  Returns each
+    kernel's largest float32 error."""
+    import torch
+    from image_caption_tpu_torch.vision import bottleneck as B
+    worst = {"fused_bottleneck": 0.0, "fused_stage": 0.0}
+    for k, run in enumerate(runs):
+        ws = bottleneck_weights(run, 100 + k, device)
+        for n in crops:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = bottleneck_input(run, n, 200 + k, device, dtype)
+                pairs = {"fused_stage": (B.fused_stage(x, *ws),
+                                         B.stage_reference(x, *ws)),
+                         "fused_bottleneck": (
+                             B.fused_bottleneck(x, *block_args(ws)),
+                             B.bottleneck_reference(x, *block_args(ws)))}
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                tol = BOTTLENECK_TOL[str(dtype).split(".")[1]]
+                parts = []
+                for name, (got, want) in pairs.items():
+                    err = (got.float() - want.float()).abs().max().item()
+                    ref = want.float().abs().max().item()
+                    parts.append(f"{name} max_abs_err {err:.3e} (max|ref| "
+                                 f"{ref:.3e}, rel {err / ref:.3e})")
+                    if not (err <= tol * ref and bool(torch.isfinite(got)
+                                                       .all())):
+                        raise AssertionError(
+                            f"{name} disagrees with its plain version on "
+                            f"{run[0]} N={n} {dtype}: {err:.3e} > {tol:g} x "
+                            f"{ref:.3e}")
+                    if dtype == torch.float32:
+                        worst[name] = max(worst[name], err)
+                print(f"kernel check bottleneck {run[0]} N={n} C={run[2]} "
+                      f"H=W={run[1]} Wd={run[3]} blocks={run[4]} {dtype}: "
+                      f"{'; '.join(parts)} (tol {tol:g} x max|ref|)",
+                      flush=True)
+    return worst
+
+
+def bottleneck_bound(run, n: int, nblk: int, elem: int):
+    """Least time for ``nblk`` blocks of a run on n crops: x read and y
+    written once, the weights read once, against the multiply-adds of the
+    three convs at the dtype's peak (bf16 tensor cores, f32 CUDA cores)."""
+    _, h, c, wd, _ = run
+    nbytes = (2 * n * h * h * c * elem
+              + nblk * ((2 * c * wd + 9 * wd * wd) * elem + 4 * (4 * wd + 2 * c)))
+    flops = 2 * n * h * h * nblk * (2 * c * wd + 9 * wd * wd)
+    peak = PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def time_bottleneck(card: str):
+    """Per identity run at N=192 crops: kernel #4 over the run in bf16 and
+    f32, kernel #3 over its first block in bf16; each beside its bound,
+    its plain version and the cuDNN yardstick: the same blocks as three
+    channels-last ``F.conv2d`` with the epilogues each, the route of
+    ``resnet_features(use_kernel=False)``.  Device time by CUDA-graph
+    replay (one call per graph, 2 warm-up and 5 timed replays)."""
+    import torch
+    from image_caption_tpu_torch.vision import bottleneck as B
+    from image_caption_tpu_torch.vision.resnet import _bottleneck
+    rows = {"fused_stage": {}, "fused_bottleneck": {}}
+    timing = dict(warmup=2, reps=5)
+    for k, run in enumerate(RESNET101_RUNS):
+        ws = bottleneck_weights(run, 100 + k, "cuda")
+        blocks = [{"conv1": ws[0][i][:, :, None, None],
+                   "bn1": {"scale": ws[1][i, 0], "bias": ws[1][i, 1]},
+                   "conv2": ws[2][i],
+                   "bn2": {"scale": ws[3][i, 0], "bias": ws[3][i, 1]},
+                   "conv3": ws[4][i][:, :, None, None],
+                   "bn3": {"scale": ws[5][i, 0], "bias": ws[5][i, 1]}}
+                  for i in range(run[4])]
+        cases = [("fused_stage", torch.bfloat16, run[4]),
+                 ("fused_stage", torch.float32, run[4]),
+                 ("fused_bottleneck", torch.bfloat16, 1)]
+        for name, dtype, nblk in cases:
+            x = bottleneck_input(run, CROPS, 300 + k, "cuda", dtype)
+            if name == "fused_stage":
+                def kernel():
+                    return B.fused_stage(x, *ws)
+
+                def plain():
+                    return B.stage_reference(x, *ws)
+            else:
+                def kernel():
+                    return B.fused_bottleneck(x, *block_args(ws))
+
+                def plain():
+                    return B.bottleneck_reference(x, *block_args(ws))
+
+            def cudnn():
+                y = x
+                for blk in blocks[:nblk]:
+                    y = _bottleneck(blk, y, 1)
+                return y
+            row = {"shape": [CROPS, run[2], run[1], run[1], run[3], nblk],
+                   "dtype": str(dtype).split(".")[1],
+                   "ms": device_ms(kernel, per_graph=1, **timing),
+                   "call_ms": call_ms(kernel, **timing),
+                   "plain_ms": device_ms(plain, per_graph=1, **timing),
+                   "cudnn_ms": device_ms(cudnn, per_graph=1, **timing),
+                   "library_ms": None}
+            (row["bound_ms"], row["bound_by"], row["bytes"],
+             row["flops"]) = bottleneck_bound(run, CROPS, nblk,
+                                              x.element_size())
+            rows[name][f"{run[0]}_{row['dtype']}"] = row
+            print(f"time {name} {run[0]} (N, C, H, W, Wd, blocks)="
+                  f"{tuple(row['shape'])} {row['dtype']}: kernel "
+                  f"{row['ms']:.4f} ms on the device ({row['call_ms']:.4f} ms "
+                  f"a call), bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}; {row['flops'] / 1e9:.1f} GFLOP, "
+                  f"{row['bytes'] / 1e6:.1f} MB), plain {row['plain_ms']:.4f}"
+                  f" ms, cuDNN {row['cudnn_ms']:.4f} ms, kernel/cuDNN "
+                  f"{row['ms'] / row['cudnn_ms']:.2f}x [{card}]", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 12-15: extraction and captioning from images at full width
+# ---------------------------------------------------------------------------
+
+def letterboxed_canvases(n: int, seed: int):
+    """``n`` uint8 640-px canvases letterboxed as the loader does (content
+    centred on gray 114) from random images of 300-640 px a side, with
+    their metas [n, 3] and original sizes [n, 2]."""
+    from image_caption_tpu_torch.vision.ops import letterbox_params
+    rng = np.random.RandomState(seed)
+    canvases = np.full((n, 640, 640, 3), 114, np.uint8)
+    metas, sizes = [], []
+    for i in range(n):
+        h, w = rng.randint(300, 641, size=2)
+        r, nh, nw, top, left = letterbox_params(h, w, 640)
+        canvases[i, top:top + nh, left:left + nw] = rng.randint(
+            0, 256, (nh, nw, 3))
+        metas.append([r, top, left])
+        sizes.append([h, w])
+    return canvases, np.asarray(metas, np.float32), np.asarray(sizes,
+                                                                np.float32)
+
+
+def padded_batches(canvases, metas, sizes, batch: int):
+    """Batches of ``batch``; the last one padded with copies of its first
+    row, as ``stream_extracted_batches`` pads."""
+    out = []
+    for s in range(0, len(canvases), batch):
+        parts = [a[s:s + batch] for a in (canvases, metas, sizes)]
+        real = len(parts[0])
+        if real < batch:
+            parts = [np.concatenate([a, np.repeat(a[:1], batch - real, 0)])
+                     for a in parts]
+        out.append((parts, real))
+    return out
+
+
+def drive_extract(params, cfg, card: str, device="cuda"):
+    """``extract_features_batch`` at full width (YOLOv5x at 640, ResNet-101
+    on 224-px crops) on the flagship's slot contract, bf16, batch 32, 70
+    images in 3 batches, on both ResNet routes; returns the kernel launches
+    of one pass of the kernel route and the features of both routes."""
+    import torch
+    from image_caption_tpu_torch.vision import bottleneck as B
+    from image_caption_tpu_torch.vision.pipeline import extract_features_batch
+    m, d = cfg.model, cfg.data
+    batches = padded_batches(*letterboxed_canvases(EXTRACT_IMAGES, 7),
+                             EXTRACT_BATCH)
+
+    def run_pass(use_kernel):
+        outs = []
+        for (c, mt, sz), real in batches:
+            f, p, bx = extract_features_batch(
+                params, c, mt, sz, num_objects=m.num_objects,
+                max_obj=d.max_obj, use_kernel=use_kernel, device=device)
+            outs.append((f[:real], p[:real], bx[:real]))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return [torch.cat(t) for t in zip(*outs)]
+
+    for use_kernel in (True, False):           # set-up, not counted
+        run_pass(use_kernel)
+    B.fused_stage.launches = B.fused_bottleneck.launches = 0
+    results = {True: run_pass(True)}
+    launches = {"fused_stage": B.fused_stage.launches,
+                "fused_bottleneck": B.fused_bottleneck.launches}
+    results[False] = run_pass(False)
+    print(f"extract: launches over {len(batches)} batches {launches}, want "
+          f"fused_stage 4 per batch and fused_bottleneck 0", flush=True)
+    if device != "cpu" and launches != {"fused_stage": 4 * len(batches),
+                                        "fused_bottleneck": 0}:
+        raise AssertionError(f"extract launched {launches}")
+    seconds = {True: [], False: []}
+    for use_kernel in (True, False, False, True, True, False):
+        t0 = time.perf_counter()
+        run_pass(use_kernel)
+        seconds[use_kernel].append(time.perf_counter() - t0)
+    for use_kernel, label in ((True, "kernel"), (False, "cuDNN")):
+        s = statistics.median(seconds[use_kernel])
+        print(f"extract {label} route: {EXTRACT_IMAGES} images in {s:.4f} s "
+              f"(median of 3: {', '.join(f'{x:.4f}' for x in seconds[use_kernel])}"
+              f"), {EXTRACT_IMAGES / s:.2f} images/s at batch "
+              f"{EXTRACT_BATCH}, bf16 [{card}]", flush=True)
+
+    (fk, pk, bk), (fp, pp, bp) = results[True], results[False]
+    same_det = torch.equal(pk, pp) and torch.equal(bk, bp)
+    err = (fk - fp).abs().max().item()
+    ref = fp.abs().max().item()
+    print(f"extract: features {tuple(fk.shape)} kernel route vs cuDNN route "
+          f"max_abs_err {err:.3e} (max|ref| {ref:.3e}, rel {err / ref:.3e}, "
+          f"tol {EXTRACT_ROUTE_TOL:g} x max|ref|); detections and positions "
+          f"equal: {same_det}", flush=True)
+    if not (same_det and err <= EXTRACT_ROUTE_TOL * ref
+            and bool(torch.isfinite(fk).all())):
+        raise AssertionError("the two ResNet routes disagree")
+    if device != "cpu":
+        profile_extract(params, cfg, batches[0][0], card)
+    return launches
+
+
+def profile_extract(params, cfg, batch, card: str):
+    """One extraction batch (kernel route) under torch.profiler: device
+    busy against the batch's host-clock time, and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from image_caption_tpu_torch.vision.pipeline import extract_features_batch
+
+    def run():
+        extract_features_batch(params, *batch,
+                               num_objects=cfg.model.num_objects,
+                               max_obj=cfg.data.max_obj)
+        torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = 1e3 * statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    stats = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in stats) / 1e3
+    if busy_ms <= 0:
+        print("profile extract: the profiler saw no device time; device busy "
+              "share not measured", flush=True)
+        return
+    print(f"profile extract, one batch of {EXTRACT_BATCH} images: "
+          f"{wall_ms:.2f} ms on the host clock, device busy {busy_ms:.2f} ms,"
+          f" idle share {1 - busy_ms / wall_ms:.4f} [{card}]", flush=True)
+    top = sorted(stats, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    for e in top:
+        print(f"profile extract:   {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<6d} {e.key[:90]}", flush=True)
+
+
+def write_jpegs(directory: str, n: int, seed: int):
+    """``n`` JPEGs of 300-640 px a side (smooth random colour fields)."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    paths = []
+    for i in range(n):
+        h, w = rng.randint(300, 641, size=2)
+        small = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3), np.uint8)
+        img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+        paths.append(os.path.join(directory, f"img{i:03d}.jpg"))
+        img.save(paths[-1], quality=90)
+    return paths
+
+
+def drive_caption(params, cfg, card: str, device="cuda"):
+    """``caption_images`` on 70 JPEGs with the flagship captioner at full
+    width (random weights, seed 0), greedy and beam 3, batch 32: images/s
+    end to end (decode, extraction, captioning) and the launches of
+    kernels #1 and #4.  Returns the launches of one greedy and one beam
+    pass."""
+    import torch
+    from image_caption_tpu_torch.models.captioner import Captioner
+    from image_caption_tpu_torch.ops.attention import fused_attention
+    from image_caption_tpu_torch.serve import caption_images
+    from image_caption_tpu_torch.vision import bottleneck as B
+    m = cfg.model
+    model = Captioner(m, device=device,
+                      generator=torch.Generator().manual_seed(0))
+    idx_to_word = vocabulary(m.num_vocab)
+    n_batches = -(-EXTRACT_IMAGES // EXTRACT_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_jpegs(tmp, EXTRACT_IMAGES, 11)
+
+        def run(beam):
+            return caption_images(cfg, paths, model, idx_to_word,
+                                  extractor_params=params, beam_size=beam,
+                                  batch_size=EXTRACT_BATCH,
+                                  max_obj=cfg.data.max_obj, device=device)
+        for beam in (None, 3):                  # set-up, not counted
+            run(beam)
+        launches = {"fused_attention": 0, "fused_stage": 0}
+        for label, beam in (("greedy", None), ("beam3", 3)):
+            fused_attention.launches = B.fused_stage.launches = 0
+            caps = run(beam)
+            got = {"fused_attention": fused_attention.launches,
+                   "fused_stage": B.fused_stage.launches}
+            for k in launches:
+                launches[k] += got[k]
+            print(f"caption {label}: launches over {n_batches} batches {got},"
+                  f" want 3 and 4 per batch; first caption {caps[0]!r}",
+                  flush=True)
+            if device != "cpu" and got != {"fused_attention": 3 * n_batches,
+                                           "fused_stage": 4 * n_batches}:
+                raise AssertionError(f"caption {label} launched {got}")
+            if len(caps) != EXTRACT_IMAGES or not all(
+                    isinstance(c, str) for c in caps):
+                raise AssertionError(f"caption {label}: an image got no "
+                                     f"caption")
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(beam)
+                runs.append(time.perf_counter() - t0)
+            s = statistics.median(runs)
+            print(f"caption {label}: {EXTRACT_IMAGES} JPEGs in {s:.4f} s "
+                  f"(median of 3: {', '.join(f'{r:.4f}' for r in runs)}), "
+                  f"{EXTRACT_IMAGES / s:.2f} images/s end to end at batch "
+                  f"{EXTRACT_BATCH} [{card}]", flush=True)
+            if device != "cpu" and beam is None:
+                profile_caption(lambda: run(None), s, card)
+    return launches
+
+
+def profile_caption(run, wall_s: float, card: str):
+    """One greedy ``caption_images`` run under torch.profiler: the device's
+    busy time against the run's median host-clock time without the
+    profiler, and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    stats = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in stats) / 1e3
+    if busy_ms <= 0:
+        print("profile caption: the profiler saw no device time; device "
+              "busy share not measured", flush=True)
+        return
+    print(f"profile caption greedy, {EXTRACT_IMAGES} JPEGs: {wall_s * 1e3:.2f}"
+          f" ms on the host clock, device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / (wall_s * 1e3):.4f} [{card}]", flush=True)
+    top = sorted(stats, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    for e in top:
+        print(f"profile caption:   {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<6d} {e.key[:90]}", flush=True)
+
+
+def smoke_extractor(seed: int, device):
+    """``init_extractor``'s random weights made to behave like trained ones.
+    As initialised (the JAX package's init), YOLOv5x's activations shrink
+    layer by layer until every cell scores the same 0.25, and ResNet-101's
+    grow to 1e5.  So each YOLO conv's folded BN takes the mean and spread of
+    its output over one batch of the smoke's canvases (what BatchNorm's
+    running statistics hold), and each ResNet block's last BN scale is 0.2
+    (trained nets keep the residual branch small)."""
+    import torch
+    import torch.nn.functional as F
+    from image_caption_tpu_torch.vision import yolov5 as Y
+    from image_caption_tpu_torch.vision.pipeline import init_extractor
+    params = init_extractor(seed=seed, device=device)
+    plain = Y._convbn
+
+    def calibrate(p, x, stride=1):
+        k = p["conv"].shape[-1]
+        pad = k // 2 if k % 2 == 1 else k // 2 - 1
+        y = F.conv2d(x, p["conv"], stride=stride, padding=pad)
+        mean = y.mean(dim=(0, 2, 3))
+        std = y.std(dim=(0, 2, 3)) + 1e-3
+        p["bn"] = {"scale": 1.0 / std, "bias": -mean / std}
+        return plain(p, x, stride)
+    canvases = torch.from_numpy(letterboxed_canvases(8, 3)[0]).to(device)
+    Y._convbn = calibrate
+    try:
+        with torch.no_grad():
+            Y.yolov5_raw(params.yolo, canvases.float() / 255.0)
+    finally:
+        Y._convbn = plain
+    for blocks in params.resnet["layers"]:
+        for block in blocks:
+            block["bn3"]["scale"] = block["bn3"]["scale"] * 0.2
+    return params
+
+
+def pick_margins(boxes, scores, classes, max_det: int, iou_thres=0.45,
+                 conf_thres=0.01, pre_nms=512):
+    """The greedy scan of ``nms_fixed`` for one image, returning at each
+    step the picked score minus the runner-up's among the candidates still
+    available: how close the pick came to going the other way."""
+    import torch
+    from image_caption_tpu_torch.models.decoding import topk_lowest_index
+    from image_caption_tpu_torch.vision.nms import iou_matrix
+    k = min(pre_nms, scores.shape[0])
+    top, idx = topk_lowest_index(torch.where(scores > conf_thres, scores,
+                                             torch.full_like(scores, -1.0)),
+                                 k)
+    span = boxes.max() - boxes.min() + 1.0
+    shifted = boxes[idx] + classes[idx].float()[:, None] * span
+    iou = iou_matrix(shifted, shifted)
+    avail = top > conf_thres
+    margins = []
+    for _ in range(max_det):
+        score_m = torch.where(avail, top, torch.full_like(top, -2.0))
+        best = score_m.topk(2).values
+        margins.append((best[0] - best[1]).item())
+        i = int(torch.argmax(score_m))
+        avail = avail & ~(iou[i] > iou_thres)
+        avail[i] = False
+    return margins
+
+
+def first_difference(got, want):
+    """Index of the first detection that differs (validity, class, or a box
+    coordinate by more than 1e-3 px), or None."""
+    for j in range(len(want.valid)):
+        if (bool(got.valid[j]) != bool(want.valid[j])
+                or int(got.classes[j]) != int(want.classes[j])
+                or float((got.boxes[j] - want.boxes[j]).abs().max()) > 1e-3):
+            return j
+    return None
+
+
+def check_extract_against_cpu(params, cfg, card: str, device="cuda"):
+    """Two images at full width in float32: the card on the kernel route
+    against the CPU on the plain route, the same weights.  Detections
+    equal, except after a pick where the CPU's score margin (its pick's
+    score against the nearest other candidate score of the image) is
+    below 1e-4; features of slot 0 (the whole image) and of every image
+    whose detections agree within 1e-3 x max|ref|.  Every pick's margin
+    over the runner-up is printed."""
+    import torch
+    from image_caption_tpu_torch.vision import yolov5 as Y
+    from image_caption_tpu_torch.vision.pipeline import (
+        _detect_and_select, extract_features_batch)
+    m, d = cfg.model, cfg.data
+    c, mt, sz = letterboxed_canvases(2, 7)
+    cpu_params = params.to("cpu")
+    kw = dict(num_objects=m.num_objects, max_obj=d.max_obj,
+              compute_dtype=torch.float32)
+    fg, pg, _ = (t.cpu() for t in extract_features_batch(
+        params, c, mt, sz, use_kernel=True, device=device, **kw))
+    fc, pc, _ = extract_features_batch(cpu_params, c, mt, sz,
+                                       use_kernel=False, device="cpu", **kw)
+    sel = {}
+    for dev, p in ((device, params), ("cpu", cpu_params)):
+        t = [torch.as_tensor(a, device=dev).float() for a in (c, mt, sz)]
+        s = _detect_and_select(p, *t, num_objects=m.num_objects,
+                               cap_half=True, max_obj=d.max_obj,
+                               num_classes=80, compute_dtype=torch.float32)
+        sel[dev] = Y.Detections(*(a.cpu() for a in s.det))
+    agree = []
+    for i in range(2):
+        got = Y.Detections(*(a[i] for a in sel[device]))
+        want = Y.Detections(*(a[i] for a in sel["cpu"]))
+        raw = Y.yolov5_raw(cpu_params.yolo,
+                           torch.from_numpy(c[i:i + 1]).float() / 255.0)
+        boxes, scores, classes = Y.decode_boxes_scores(cpu_params.yolo, raw)
+        margins = pick_margins(boxes[0], scores[0], classes[0],
+                               m.num_objects)
+        n_valid = int(want.valid.sum())
+        j = first_difference(got, want)
+        agree.append(j is None)
+        if j is None:
+            print(f"cpu check extract: image {i}: {n_valid} detections "
+                  f"equal; smallest CPU margin over the runner-up "
+                  f"{min(margins[:max(n_valid, 1)]):.3e}", flush=True)
+            continue
+        print(f"cpu check extract: image {i} differs from detection {j}, "
+              f"CPU score margin over the runner-up there {margins[j]:.3e}",
+              flush=True)
+        if not margins[j] < 1e-4:
+            raise AssertionError(f"detections differ at image {i}, pick {j},"
+                                 f" where the CPU's margin is "
+                                 f"{margins[j]:.3e}")
+    slots = [slice(None) if ok else slice(0, 1) for ok in agree]
+    err = max((fg[i, s] - fc[i, s]).abs().max().item()
+              for i, s in enumerate(slots))
+    ref = max(fc[i, s].abs().max().item() for i, s in enumerate(slots))
+    print(f"cpu check extract: features {tuple(fc.shape)} float32, card "
+          f"kernel route vs CPU plain route max_abs_err {err:.3e} (max|ref| "
+          f"{ref:.3e}, tol 1e-3 x max|ref|), positions max_abs_err "
+          f"{(pg - pc).abs().max().item():.3e} [{card}]", flush=True)
+    if not err <= 1e-3 * ref:
+        raise AssertionError(f"card and CPU features differ by {err:.3e}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -832,44 +1399,74 @@ def main() -> int:
     max_err = check_kernel("cuda")
     max_err_bwd = check_kernel_bwd("cuda")
     check_gradients("cuda")
+    max_err_bneck = check_bottleneck("cuda")
     times = time_kernel(card)
     times_bwd = time_kernel_bwd(card)
+    times_bneck = time_bottleneck(card)
 
     from image_caption_tpu_torch.ops.attention import (fused_attention,
                                                        fused_attention_bwd)
+    from image_caption_tpu_torch.vision import bottleneck as B
     fused_attention.launches = fused_attention_bwd.launches = 0
-    serve_launches = drive_slice(get_preset(FLAGSHIP), "cuda", card)
-    if fused_attention_bwd.launches != 0:
-        raise AssertionError("serving launched the backward kernel")
+    B.fused_stage.launches = B.fused_bottleneck.launches = 0
+    flagship = get_preset(FLAGSHIP)
+    serve_launches = drive_slice(flagship, "cuda", card)
+    if fused_attention_bwd.launches != 0 or B.fused_stage.launches != 0:
+        raise AssertionError("serving on features launched another kernel")
     xe = get_preset(XE_PRESET).with_overrides(
         **{"model.attention_dropout": 0.0})
     train_launches, _ = drive_train(xe, card)
     drive_train_loop(xe, card)
     train_against_cpu(xe, card)
 
-    def entry(name, source, replaces, launches, by_path, err, rows):
-        main_shape = rows["a_encoder"]
+    t0 = time.perf_counter()
+    extractor = smoke_extractor(0, "cuda")
+    print(f"extractor: YOLOv5x + ResNet-101, random weights from seed 0 "
+          f"with BN calibrated on one batch, {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    extract_launches = drive_extract(extractor, flagship, card)
+    caption_launches = drive_caption(extractor, flagship, card)
+    check_extract_against_cpu(extractor, flagship, card)
+
+    def entry(name, source, replaces, by_path, err, rows, main_shape):
+        row = rows[main_shape]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
-                "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-                "bound_ms": main_shape["bound_ms"],
-                "bound_by": main_shape["bound_by"],
-                "library_ms": main_shape["library_ms"], "shapes": rows}
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "main_shape": main_shape,
+                "shapes": rows}
 
     fwd_train = train_launches["fused_attention"]
+    bneck_src = "image_caption_tpu_torch/csrc/fused_bottleneck.cu"
     kernels = [
         entry("fused_attention",
               "image_caption_tpu_torch/csrc/fused_attention.cu",
               "image_caption_tpu/ops/attention.py:89",
-              serve_launches + fwd_train,
-              {"serve": serve_launches, "train": fwd_train}, max_err, times),
+              {"serve": serve_launches, "train": fwd_train, "extract": 0,
+               "caption": caption_launches["fused_attention"]},
+              max_err, times, "a_encoder"),
         entry("fused_attention_bwd",
               "image_caption_tpu_torch/csrc/fused_attention_bwd.cu",
               "image_caption_tpu/ops/attention.py:125",
-              train_launches["fused_attention_bwd"],
-              {"serve": 0, "train": train_launches["fused_attention_bwd"]},
-              max_err_bwd, times_bwd),
+              {"serve": 0, "train": train_launches["fused_attention_bwd"],
+               "extract": 0, "caption": 0},
+              max_err_bwd, times_bwd, "a_encoder"),
+        entry("fused_bottleneck", bneck_src,
+              "image_caption_tpu/vision/pallas_bottleneck.py:43",
+              {"serve": 0, "train": 0,
+               "extract": extract_launches["fused_bottleneck"],
+               "caption": 0},
+              max_err_bneck["fused_bottleneck"],
+              times_bneck["fused_bottleneck"], "stage3_bfloat16"),
+        entry("fused_stage", bneck_src,
+              "image_caption_tpu/vision/pallas_bottleneck.py:139",
+              {"serve": 0, "train": 0,
+               "extract": extract_launches["fused_stage"],
+               "caption": caption_launches["fused_stage"]},
+              max_err_bneck["fused_stage"], times_bneck["fused_stage"],
+              "stage3_bfloat16"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

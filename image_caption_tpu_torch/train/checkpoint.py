@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -62,6 +62,12 @@ class CheckpointManager:
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return state
+
+    def load_model_state(self, epoch: int) -> Dict[str, torch.Tensor]:
+        """The model's state_dict of epoch ``epoch`` (CPU tensors), without
+        the optimizer: what serving restores."""
+        return torch.load(self.path(epoch), map_location="cpu",
+                          weights_only=True)["model"]
 
     def all_epochs(self) -> List[int]:
         found = (_NAME.match(n) for n in os.listdir(self.directory))

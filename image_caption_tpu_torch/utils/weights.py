@@ -4,7 +4,9 @@ checkpoints.
 The port's parameter names are the reference's state_dict names, so a
 reference ``model_N.pt`` (``torch.save(model.state_dict())``,
 core/models.py:62-63) loads with ``load_state_dict`` as it is.  JAX params
-store Linear kernels ``[in, out]``; torch stores ``[out, in]``.
+store Linear kernels ``[in, out]``; torch stores ``[out, in]``.  JAX conv
+kernels are HWIO; the port's are OIHW, and this module is the one place
+that converts them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from ..config import ModelConfig
 from ..models.captioner import Captioner
 from .device import DeviceLike
+from .tree import tree_map
 
 # the reference's sinusoid buffer (model.py:495-500); the port recomputes it
 REFERENCE_POS_TABLE = "decoder.position_embedding.pos_table"
@@ -103,3 +106,27 @@ def load_reference_checkpoint(path: str, cfg: ModelConfig, *,
     model.load_state_dict({k: v.float() for k, v in sd.items()
                            if k != REFERENCE_POS_TABLE})
     return model
+
+
+def _extractor_tree(params: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX vision param pytree (numpy or array leaves) -> the same tree
+    of f32 CPU tensors, every 4-D conv kernel HWIO -> OIHW (contiguous);
+    folded BN scale/bias, detect biases and anchors stay as they are."""
+    def leaf(x):
+        a = np.asarray(x, dtype=np.float32)
+        if a.ndim == 4:
+            a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+        return torch.from_numpy(np.array(a))
+    return tree_map(leaf, params)
+
+
+def resnet_state_from_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's ResNet params -> the port's ResNet params
+    (``vision/resnet.py``)."""
+    return _extractor_tree(params)
+
+
+def yolov5_state_from_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's YOLOv5 params -> the port's YOLOv5 params
+    (``vision/yolov5.py``), detect biases and anchors included."""
+    return _extractor_tree(params)

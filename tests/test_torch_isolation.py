@@ -18,7 +18,12 @@ from image_caption_tpu_torch import config as TCFG
 from image_caption_tpu_torch.data.dataset import CocoSplit
 from image_caption_tpu_torch.models import decoding as TD
 from image_caption_tpu_torch.models.captioner import Captioner
-from image_caption_tpu_torch.serve import decode_split
+from image_caption_tpu_torch.main import main as cli_main
+from image_caption_tpu_torch.serve import caption_images, decode_split
+from image_caption_tpu_torch.vision import pipeline as TP
+from image_caption_tpu_torch.vision.etl import stream_extracted_batches
+from image_caption_tpu_torch.vision.resnet import init_resnet
+from image_caption_tpu_torch.vision.yolov5 import init_yolov5
 
 from conftest import make_fake_batch
 
@@ -108,15 +113,36 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["Captioner", "greedy_decode",
-                                   "beam_search", "decode_split"])
+def _tiny_extractor():
+    gen = torch.Generator().manual_seed(0)
+    return TP.ExtractorParams(
+        yolo=init_yolov5(gen, depth_multiple=0.33, width_multiple=0.25),
+        resnet=init_resnet(gen, stages=(1, 1, 1, 1)))
+
+
+@pytest.mark.parametrize("entry", [
+    "Captioner", "greedy_decode", "beam_search", "decode_split",
+    "caption_images", "stream_extracted_batches", "extract_features_batch",
+    "init_extractor", "caption verb"])
 def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda):
-    if entry == "Captioner":
+    if entry in ("Captioner", "init_extractor"):
+        make = Captioner if entry == "Captioner" else \
+            lambda m: TP.init_extractor()
         with pytest.raises(RuntimeError, match="CUDA"):
-            Captioner(tiny_cfg.model)
+            make(tiny_cfg.model)
+        return
+    if entry == "caption verb":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main(["caption", "--images", "a.jpg"])
+        with pytest.raises(SystemExit, match="no images"):
+            cli_main(["--device", "cpu", "caption"])
         return
     model = Captioner(tiny_cfg.model, device="cpu")
     f, p, c = make_fake_batch(tiny_cfg, batch=2)
+    extractor = _tiny_extractor()
+    canvases = np.full((1, 64, 64, 3), 114, np.uint8)
+    metas = np.array([[1.0, 0.0, 0.0]], np.float32)
+    sizes = np.array([[64.0, 64.0]], np.float32)
     calls = {
         "greedy_decode": lambda **kw: TD.greedy_decode(model, f, p, **kw),
         "beam_search": lambda **kw: TD.beam_search(model, f, p, beam_size=2,
@@ -125,6 +151,13 @@ def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda):
             model, tiny_cfg, CocoSplit(f, p, c, np.arange(2),
                                        np.array(["a", "b"])), 2,
             {i: str(i) for i in range(tiny_cfg.model.num_vocab)}, **kw),
+        "caption_images": lambda **kw: caption_images(
+            tiny_cfg, [], model, {}, extractor_params=extractor, **kw),
+        "stream_extracted_batches": lambda **kw: list(
+            stream_extracted_batches([], extractor_params=extractor, **kw)),
+        "extract_features_batch": lambda **kw: TP.extract_features_batch(
+            extractor, canvases, metas, sizes, num_objects=4, crop_size=32,
+            **kw),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
