@@ -36,11 +36,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    norm-relative per tensor, the three losses within 2e-4;
 10. kernel check bottleneck: kernels #3 (one block) and #4 (a whole
     identity run) against ``bottleneck_reference`` and ``stage_reference``
-    at ResNet-101's four identity runs (2, 3, 22 and 2 blocks) on 192, 5
-    and 1 crops, within 1e-4 (f32) and 3e-2 (bf16) x max|ref|;
+    at ResNet-101's four identity runs (2, 3, 22 and 2 blocks) on 192, 133,
+    5, 3 and 1 crops (128-row tiles that straddle crops, a ragged last
+    tile, more tiles than SMs), within 1e-4 (f32) and 3e-2 (bf16) x
+    max|ref|; two bf16 launches of #4 on the stage-3 run at 192 crops, and
+    a third on half the SMs' worth of CTAs, are bitwise equal (a race in
+    the grid barrier or a tile order that depends on the grid would show
+    there);
 11. time bottleneck: per run at 192 crops, each kernel's device and call
-    time beside its bound, its plain version and the cuDNN yardstick (the
-    same blocks as channels-last ``F.conv2d`` with the epilogues);
+    time beside its bound (and as TFLOP/s and a multiple of it), its
+    plain version and the cuDNN yardstick (the same blocks as
+    channels-last ``F.conv2d`` with the epilogues);
 12. extract: ``extract_features_batch`` at full width (YOLOv5x at 640,
     ResNet-101 at 224, random weights from seed 0) on the flagship's slot
     contract (36 objects, ``cap_half``, ``max_obj`` 5), bf16, 70 images in
@@ -91,6 +97,9 @@ RESNET101_RUNS = (("stage1", 56, 256, 64, 2), ("stage2", 28, 512, 128, 3),
                   ("stage3", 14, 1024, 256, 22), ("stage4", 7, 2048, 512, 2))
 # crops per extraction batch: 32 images x (the whole image + max_obj 5)
 CROPS = 192
+# and the other crop counts the kernels are checked at: 133 gives more
+# stage-4 tiles than SMs; 5, 3 and 1 tiles that straddle crops or are ragged
+CHECK_CROPS = (CROPS, 133, 5, 3, 1)
 BOTTLENECK_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # x max|ref|
 EXTRACT_IMAGES, EXTRACT_BATCH = 70, 32
 # bf16 features of the kernel route (f32 epilogues) against the cuDNN
@@ -871,7 +880,7 @@ def block_args(ws, i: int = 0):
             sb3[i, 0], sb3[i, 1])
 
 
-def check_bottleneck(device, runs=RESNET101_RUNS, crops=(CROPS, 5, 1)):
+def check_bottleneck(device, runs=RESNET101_RUNS, crops=CHECK_CROPS):
     """Kernels #3 (the run's first block) and #4 (the whole run) against
     ``bottleneck_reference`` and ``stage_reference`` on the same inputs,
     every identity run of ResNet-101 at ``crops`` crops, in float32 and
@@ -914,6 +923,33 @@ def check_bottleneck(device, runs=RESNET101_RUNS, crops=(CROPS, 5, 1)):
     return worst
 
 
+def check_determinism(device, run=RESNET101_RUNS[2], n=CROPS):
+    """Two bf16 launches of kernel #4 over ``run`` on n crops, and a third
+    on half the SMs' worth of CTAs, give the same bits: every output
+    element has one owner and one summation order whatever the grid, so a
+    difference means a race (the grid barrier, the ring's proxy fences)."""
+    import torch
+    from image_caption_tpu_torch.vision import bottleneck as B
+    ws = bottleneck_weights(run, 102, device)
+    x = bottleneck_input(run, n, 202, device, torch.bfloat16)
+    first, second = B.fused_stage(x, *ws), B.fused_stage(x, *ws)
+    if x.is_cuda:
+        ctas = torch.cuda.get_device_properties(x.device).multi_processor_count
+        ctas //= 2
+        half = B._launch("fused_stage", x, *ws, max_ctas=ctas)
+    else:                             # a rehearsal: the plain version
+        ctas, half = 0, B.fused_stage(x, *ws)
+    bits = first.view(torch.int16)
+    differ = int((bits != second.view(torch.int16)).sum())
+    differ_grid = int((bits != half.view(torch.int16)).sum())
+    print(f"kernel check bottleneck determinism {run[0]} N={n} blocks="
+          f"{run[4]} bfloat16: two launches, {differ} of {first.numel()} "
+          f"elements differ in their bits; on {ctas} CTAs, {differ_grid} "
+          f"differ (want 0 and 0)", flush=True)
+    if differ or differ_grid:
+        raise AssertionError("fused_stage is not deterministic")
+
+
 def bottleneck_bound(run, n: int, nblk: int, elem: int):
     """Least time for ``nblk`` blocks of a run on n crops: x read and y
     written once, the weights read once, against the multiply-adds of the
@@ -930,10 +966,11 @@ def bottleneck_bound(run, n: int, nblk: int, elem: int):
 
 def time_bottleneck(card: str):
     """Per identity run at N=192 crops: kernel #4 over the run in bf16 and
-    f32, kernel #3 over its first block in bf16; each beside its bound,
-    its plain version and the cuDNN yardstick: the same blocks as three
-    channels-last ``F.conv2d`` with the epilogues each, the route of
-    ``resnet_features(use_kernel=False)``.  Device time by CUDA-graph
+    f32, kernel #3 over its first block in bf16; each beside its bound
+    (with its TFLOP/s and its time as a multiple of the bound), its plain
+    version, the cuDNN yardstick (the same blocks as three channels-last
+    ``F.conv2d`` with the epilogues each, the route of
+    ``resnet_features(use_kernel=False)``).  Device time by CUDA-graph
     replay (one call per graph, 2 warm-up and 5 timed replays)."""
     import torch
     from image_caption_tpu_torch.vision import bottleneck as B
@@ -982,15 +1019,19 @@ def time_bottleneck(card: str):
             (row["bound_ms"], row["bound_by"], row["bytes"],
              row["flops"]) = bottleneck_bound(run, CROPS, nblk,
                                               x.element_size())
+            row["tflops"] = row["flops"] / row["ms"] / 1e9
+            row["x_bound"] = row["ms"] / row["bound_ms"]
             rows[name][f"{run[0]}_{row['dtype']}"] = row
             print(f"time {name} {run[0]} (N, C, H, W, Wd, blocks)="
                   f"{tuple(row['shape'])} {row['dtype']}: kernel "
                   f"{row['ms']:.4f} ms on the device ({row['call_ms']:.4f} ms "
-                  f"a call), bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']}; {row['flops'] / 1e9:.1f} GFLOP, "
-                  f"{row['bytes'] / 1e6:.1f} MB), plain {row['plain_ms']:.4f}"
-                  f" ms, cuDNN {row['cudnn_ms']:.4f} ms, kernel/cuDNN "
-                  f"{row['ms'] / row['cudnn_ms']:.2f}x [{card}]", flush=True)
+                  f"a call), {row['tflops']:.1f} TFLOP/s, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                  f"{row['flops'] / 1e9:.1f} GFLOP, {row['bytes'] / 1e6:.1f}"
+                  f" MB), {row['x_bound']:.2f}x the bound, plain "
+                  f"{row['plain_ms']:.4f} ms, cuDNN {row['cudnn_ms']:.4f} ms, "
+                  f"kernel/cuDNN {row['ms'] / row['cudnn_ms']:.2f}x [{card}]",
+                  flush=True)
     return rows
 
 
@@ -1400,6 +1441,7 @@ def main() -> int:
     max_err_bwd = check_kernel_bwd("cuda")
     check_gradients("cuda")
     max_err_bneck = check_bottleneck("cuda")
+    check_determinism("cuda")
     times = time_kernel(card)
     times_bwd = time_kernel_bwd(card)
     times_bneck = time_bottleneck(card)

@@ -17,6 +17,8 @@ route ``vision/resnet._bottleneck``, which applies BN in x's dtype).
     tensors the hand-written ``sm_90a`` kernel of
     ``csrc/fused_bottleneck.cu``, one launch per call (a whole stack of
     blocks for ``fused_stage``); each call adds one to its ``launches``.
+    bf16 runs every phase as one GEMM over all crops on a persistent
+    cooperative grid, one CTA per SM; f32 runs one thread block per crop.
 
 Layout: x is an NCHW tensor in ``torch.channels_last`` memory (NHWC bytes,
 what the kernel reads); the output has the same layout.  Weights are the
@@ -36,8 +38,22 @@ import torch.nn.functional as F
 from ..ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's output tile is 64 channels wide
+# the kernels' output tiles are 64 or 128 channels wide
 CHANNEL_MULTIPLE = 64
+# the kernels index an element of h1, h2 or y with a 32-bit int
+_INT32_MAX = 2 ** 31 - 1
+
+
+def check_kernel_shape(n: int, h: int, w: int, c: int, wd: int) -> None:
+    """Raise on a shape the CUDA kernels do not take: C and Wd must be
+    multiples of their 64-channel tiles, and N*H*W*max(C, Wd) must fit
+    their 32-bit element index."""
+    if c % CHANNEL_MULTIPLE or wd % CHANNEL_MULTIPLE:
+        raise ValueError(f"the CUDA kernel takes C and Wd in multiples of "
+                         f"{CHANNEL_MULTIPLE}, got C={c}, Wd={wd}")
+    if n * h * w * max(c, wd) > _INT32_MAX:
+        raise ValueError(f"{n * h * w} pixels of {max(c, wd)} channels "
+                         f"overflow the kernel's 32-bit element index")
 
 
 def _rows(v: torch.Tensor) -> torch.Tensor:
@@ -131,9 +147,7 @@ def _check(x, w1, sb1, w2, sb2, w3, sb3) -> None:
         if t.device != x.device:
             raise ValueError("x and the weights must lie on one device")
     if x.device.type == "cuda":
-        if c % CHANNEL_MULTIPLE or wd % CHANNEL_MULTIPLE:
-            raise ValueError(f"the CUDA kernel takes C and Wd in multiples of "
-                             f"{CHANNEL_MULTIPLE}, got C={c}, Wd={wd}")
+        check_kernel_shape(n, h, w, c, wd)
         cap = torch.cuda.get_device_capability(x.device)
         if cap != (9, 0):
             raise RuntimeError(f"the fused bottleneck kernel is built for "
@@ -147,15 +161,19 @@ def _entry(name: str, n_ints: int):
     fn = getattr(_build.load("fused_bottleneck"), name)
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 10 + [i32] * n_ints + [ptr]
+        fn.argtypes = [ptr] * 11 + [i32] * n_ints + [ptr]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(entry: str, x, w1, sb1, w2, sb2, w3, sb3) -> torch.Tensor:
+def _launch(entry: str, x, w1, sb1, w2, sb2, w3, sb3,
+            max_ctas: int = 0) -> torch.Tensor:
     """Run the kernel ``entry`` of ``csrc/fused_bottleneck.cu`` on the
     current stream: weights cast to x's dtype and laid out K-major (w2 as
-    [n, out, 3, 3, in]), scratch for h1 and h2 allocated here."""
+    [n, out, 3, 3, in]); scratch for h1 and h2 and, for bf16, the zeroed
+    grid-barrier word allocated here.  bf16 launches one CTA per SM, or at
+    most ``max_ctas`` where that is above 0 (the grid-independence check of
+    ``chip_smoke.py``)."""
     dt = x.dtype
     n, c, h, w = x.shape
     nblk, wd = w1.shape[0], w1.shape[1]
@@ -166,14 +184,17 @@ def _launch(entry: str, x, w1, sb1, w2, sb2, w3, sb3) -> torch.Tensor:
     y = torch.empty_like(x, memory_format=torch.channels_last)
     h1 = torch.empty((n, h, w, wd), dtype=dt, device=x.device)
     h2 = torch.empty_like(h1)
-    ints = [n, h, w, c, wd] + ([nblk] if entry == "fused_stage" else [])
+    bar = (torch.zeros(1, dtype=torch.int32, device=x.device)
+           if dt == torch.bfloat16 else None)
+    ints = ([n, h, w, c, wd] + ([nblk] if entry == "fused_stage" else [])
+            + [max_ctas, _DTYPE_CODE[dt]])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _entry(entry, len(ints) + 1)(
+        err = _entry(entry, len(ints))(
             x.data_ptr(), y.data_ptr(), h1.data_ptr(), h2.data_ptr(),
             w1k.data_ptr(), sbs[0].data_ptr(), w2k.data_ptr(),
-            sbs[1].data_ptr(), w3k.data_ptr(), sbs[2].data_ptr(), *ints,
-            _DTYPE_CODE[dt], stream)
+            sbs[1].data_ptr(), w3k.data_ptr(), sbs[2].data_ptr(),
+            None if bar is None else bar.data_ptr(), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     return y

@@ -158,6 +158,31 @@ def test_the_kernel_source_is_built_with_the_others():
     src = (_build.CSRC / "fused_bottleneck.cu").read_text()
     assert 'extern "C" int fused_bottleneck(' in src
     assert 'extern "C" int fused_stage(' in src
-    assert "mma.sync.aligned.m16n8k16" in src
+    # bf16 multiplies on wgmma under a cooperative (all-resident) launch
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in src
+    assert "cudaLaunchAttributeCooperative" in src
+    assert "cp.async.bulk.tensor.2d" in src      # TMA: weights, 1x1 rows
+    assert "cp.async.cg.shared.global" in src   # the 3x3 gather
     assert _build.library_path("fused_bottleneck").name.startswith(
         "libfused_bottleneck-")
+
+
+# ResNet-101's identity runs (h, C, Wd) at the crop counts the card check
+# uses, 36 (the last batch of a 70-image caption run) among them
+@pytest.mark.parametrize("n", [192, 133, 36, 5, 3, 1])
+@pytest.mark.parametrize("h,c,wd", [(56, 256, 64), (28, 512, 128),
+                                    (14, 1024, 256), (7, 2048, 512)])
+def test_the_kernel_takes_every_resnet101_identity_run(n, h, c, wd):
+    TB.check_kernel_shape(n, h, h, c, wd)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 7, 7, 96, 64), "multiples of 64"),
+    ((1, 7, 7, 256, 32), "multiples of 64"),
+    ((2 ** 20, 56, 56, 256, 64), "32-bit"),
+    ((2 ** 31 // (56 * 56 * 256) + 1, 56, 56, 256, 64), "32-bit"),
+])
+def test_the_kernel_shape_check_refuses_what_the_kernel_does_not_take(
+        args, match):
+    with pytest.raises(ValueError, match=match):
+        TB.check_kernel_shape(*args)
