@@ -9,16 +9,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
 2. build: every CUDA kernel of the port, one ``nvcc`` per source, started
    together, into ``image_caption_tpu_torch/_build/``;
 3. kernel check: each kernel against its plain PyTorch version on the card,
-   in float32 and bfloat16: the forward at the serving shapes, the backward
-   at the four training shapes and a ragged case (fully masked rows give
-   exactly zero dq and finite dk, dv);
+   in float32 and bfloat16: the forward at the serving shapes, the
+   decoder's training shapes, a ragged case and two shapes too large for
+   one block's shared memory (30,000 keys; 300,000 query rows), the
+   backward at the four training shapes, the ragged case and its other
+   block layouts (the largest tiles one block takes, rows of 5 and 6
+   floats; fully masked rows give exactly zero dq and finite dk, dv);
 4. gradient check: ``torch.autograd.grad`` through
    ``sdp_attention(use_kernel=True)`` (the two kernels) and through the
-   plain path on the card agree for q, k and v;
+   plain path on the card agree for q, k and v; two launches of each
+   attention kernel at each training shape in float32 are bitwise equal;
 5. times: each kernel, its plain version and one PyTorch library call for
    the same function (the backward's: ``scaled_dot_product_attention``'s
    forward plus backward, minus its forward), by CUDA events (10 warm-up
-   runs, median of 50), beside the least time the card could take;
+   runs, median of 50), beside the least time the card could take; the
+   forward at the serving and the decoder's training shapes, the backward
+   at the four training shapes;
 6. slice (serving): the flagship captioner at full width, random weights
    from ``torch.Generator`` seed 0, decodes a 70-image split greedily and
    with beam 3 through ``decode_split``; the kernel launch counts are read
@@ -159,12 +165,20 @@ def kernel_cases(batch: int = 32):
     ragged = rng.rand(3, 5, 70) > 0.5
     ragged[0, 2] = True                  # one fully masked row
     ragged[2] = True                     # one fully masked item
+    # rows too long for one block's shared memory: the kernel walks key
+    # tiles, or query tiles, with the same running state
+    long_keys = rng.rand(2, 3, 30000) > 0.3
+    long_keys[1, 1] = True
+    long_queries = rng.rand(1, 300000, 2) > 0.6
     return [
         attention_case("a_encoder", batch, heads, slots, slots, head_dim,
                        encoder_mask(pad), 1),
         attention_case("b_pair", batch * slots, heads, 2, 2, head_dim,
                        pair_mask(pad), 2),
         attention_case("c_ragged", 3, 4, 5, 70, 16, ragged, 3),
+        attention_case("f_long_keys", 2, 2, 3, 30000, 8, long_keys, 4),
+        attention_case("g_long_queries", 1, 1, 300000, 2, 8, long_queries,
+                       5),
     ]
 
 
@@ -181,14 +195,15 @@ def on(case, device, dtype):
 # ---------------------------------------------------------------------------
 
 def check_kernel(device) -> float:
-    """Every case in float32 and bfloat16; returns the largest float32
-    error.  Tolerance: |kernel - plain| <= tol + tol*|plain|, the plain
-    version run on the same inputs in the same dtype."""
+    """Every case, and the decoder's two training shapes, in float32 and
+    bfloat16; returns the largest float32 error.  Tolerance: |kernel -
+    plain| <= tol + tol*|plain|, the plain version run on the same inputs in
+    the same dtype."""
     import torch
     from image_caption_tpu_torch.ops.attention import (attention_reference,
                                                        fused_attention)
     worst_f32 = 0.0
-    for case in kernel_cases():
+    for case in kernel_cases() + training_cases()[2:4]:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, m, t = on(case, device, dtype)
             got = fused_attention(q, k, v, m, t)
@@ -248,16 +263,38 @@ def training_cases(batch: int = 32):
     return cases
 
 
+def bwd_edge_cases():
+    """Kernel #2's other block layouts: the largest square tiles one block
+    takes at head dims 8 and 5 (``bwd_shared_bytes``), head dims whose rows
+    pad to 6 floats (read 2 at a time) in packed and single-unit blocks, odd
+    row counts that leave staged rows off 16-byte boundaries; one fully
+    masked row each."""
+    rng = np.random.RandomState(6)
+    shapes = [("h_bwd_largest", 2, 2, 162, 162, 8),
+              ("i_bwd_head5_largest", 2, 2, 163, 164, 5),
+              ("j_bwd_head6_packed", 64, 16, 13, 20, 6),
+              ("k_bwd_head6_odd_rows", 3, 5, 7, 9, 6)]
+    cases = []
+    for i, (name, b, h, lq, lk, dh) in enumerate(shapes):
+        mask = rng.rand(b, lq, lk) > 0.7
+        mask[b - 1, lq // 2] = True
+        case = attention_case(name, b, h, lq, lk, dh, mask, 30 + i)
+        case["do"] = np.random.RandomState(40 + i).randn(
+            b, h, lq, dh).astype(np.float32)
+        cases.append(case)
+    return cases
+
+
 def check_kernel_bwd(device) -> float:
     """Kernel #2 against ``attention_bwd_reference`` on every training case
-    in float32 and bfloat16, the tolerance of ``check_kernel``; fully masked
-    rows must give exactly zero dq and every gradient must be finite.
-    Returns the largest float32 error."""
+    and every edge case in float32 and bfloat16, the tolerance of
+    ``check_kernel``; fully masked rows must give exactly zero dq and every
+    gradient must be finite.  Returns the largest float32 error."""
     import torch
     from image_caption_tpu_torch.ops.attention import (
         attention_bwd_reference, fused_attention_bwd)
     worst_f32 = 0.0
-    for case in training_cases():
+    for case in training_cases() + bwd_edge_cases():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, m, t = on(case, device, dtype)
             do = torch.from_numpy(case["do"]).to(device).to(dtype)
@@ -333,6 +370,28 @@ def check_gradients(device) -> float:
     return worst
 
 
+def check_attention_determinism(device):
+    """Two launches of kernel #1 and two of kernel #2 on the same float32
+    inputs at each training shape give the same bits: every sum runs in an
+    order fixed by the shape, with no atomics."""
+    import torch
+    from image_caption_tpu_torch.ops.attention import (fused_attention,
+                                                       fused_attention_bwd)
+    for case in training_cases()[:4]:
+        q, k, v, m, t = on(case, device, torch.float32)
+        do = torch.from_numpy(case["do"]).to(device)
+        runs = [(fused_attention(q, k, v, m, t),
+                 *fused_attention_bwd(q, k, v, m, do, t)) for _ in range(2)]
+        differ = {name: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                  for name, a, b in zip(("out", "dq", "dk", "dv"), *runs)}
+        print(f"kernel check attention determinism {case['name']} "
+              f"{tuple(case['shape'])} float32: elements that differ in their "
+              f"bits between two launches {differ} (want 0)", flush=True)
+        if any(differ.values()):
+            raise AssertionError(f"attention kernels are not deterministic "
+                                 f"on {case['name']}: {differ}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: times
 # ---------------------------------------------------------------------------
@@ -393,7 +452,8 @@ def time_kernel(card: str):
     from image_caption_tpu_torch.ops.attention import (attention_reference,
                                                        fused_attention)
     rows = {}
-    cases = kernel_cases()[:2] + [
+    # the serving shapes, the decoder's training shapes, a larger batch
+    cases = kernel_cases()[:2] + training_cases()[2:4] + [
         dict(kernel_cases(batch=128)[0], name="a_encoder_B128")]
     for case in cases:
         q, k, v, m, t = on(case, "cuda", torch.float32)
@@ -1440,6 +1500,7 @@ def main() -> int:
     max_err = check_kernel("cuda")
     max_err_bwd = check_kernel_bwd("cuda")
     check_gradients("cuda")
+    check_attention_determinism("cuda")
     max_err_bneck = check_bottleneck("cuda")
     check_determinism("cuda")
     times = time_kernel(card)

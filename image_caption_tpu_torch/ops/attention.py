@@ -98,16 +98,20 @@ def attention_bwd_reference(q, k, v, mask_i8, d_out, temperature):
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64
-# the dynamic shared memory one thread block may use on sm_90 (227 KB); the
-# backward kernel holds one (b, h)'s q, k, v, dO, P and dS there
+# the dynamic shared memory one thread block may use on sm_90 (227 KB); a
+# backward block holds at least one (b, h)'s q, k, v, dO, P and dS there
 MAX_BWD_SHARED_BYTES = 232448
 
 
 def bwd_shared_bytes(lq: int, lk: int, dh: int) -> int:
-    """Shared memory of one backward block: q, dO [Lq, Dh+1], k, v
-    [Lk, Dh+1] and P, dS [Lq, Lk], all f32 (the formula of
-    ``csrc/fused_attention_bwd.cu:smem_bytes``)."""
-    return 4 * (2 * lq * (dh + 1) + 2 * lk * (dh + 1) + 2 * lq * lk)
+    """Shared memory of a backward block that holds one (b, h): q, dO
+    [Lq, Dp], k, v [Lk, Dp] with Dp = Dh rounded up to even, and P, dS
+    [Lq, Lk], all f32 (``csrc/fused_attention_bwd.cu:smem_bytes`` with one
+    unit; such a block writes dQ and reads the mask in device memory).  The
+    kernel packs more (b, h) into a block, with their dQ and mask tiles,
+    only where they fit."""
+    dp = dh + dh % 2
+    return 4 * (2 * (lq + lk) * dp + 2 * lq * lk)
 
 
 # source in csrc/ -> its C entry point
@@ -209,7 +213,8 @@ def fused_attention_bwd(q, k, v, mask_i8, d_out, temperature):
     launches the kernel of ``csrc/fused_attention_bwd.cu`` on the current
     stream and adds one to ``fused_attention_bwd.launches``; a CPU tensor
     takes ``attention_bwd_reference``.  Raises ``ValueError`` when one
-    (b, h)'s tiles do not fit a block's shared memory."""
+    (b, h)'s tiles do not fit a block's shared memory
+    (``bwd_shared_bytes``)."""
     _check_bwd(q, k, v, mask_i8, d_out, temperature)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, mask_i8, d_out, temperature)

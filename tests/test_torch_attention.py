@@ -60,7 +60,8 @@ def test_reference_matches_attention_xla(shape, masked):
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 5, 7, 4), (4, 32, 2, 2, 8),
-                                   (2, 32, 37, 37, 8), (3, 4, 5, 70, 16)])
+                                   (2, 32, 37, 37, 8), (2, 32, 50, 50, 8),
+                                   (3, 4, 5, 70, 16)])
 def test_fused_cpu_matches_pallas_interpret(shape):
     q, k, v, mask = _setup(*shape, full_row=True)
     temp = float(np.sqrt(shape[-1]))
@@ -70,6 +71,53 @@ def test_fused_cpu_matches_pallas_interpret(shape):
                              _t(mask.astype(np.int8)), temp)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
+
+
+def causal_key_pad_mask(b, length, seed):
+    """The decoder's self-attention mask: causal OR a padded key tail
+    (item 0 keeps one token, so its later rows see one key)."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(1, length + 1, size=b)
+    lengths[0] = 1
+    pad = np.arange(length)[None, :] >= lengths[:, None]
+    causal = np.triu(np.ones((length, length), bool), 1)
+    return pad[:, None, :] | causal[None]
+
+
+def pair_block_mask(b, slots, seed):
+    """The split_image_objects pair block's mask [b*slots, 2, 2]: token 0
+    the whole image, token 1 an object, causal, empty slots padded (item 0
+    is an all-zero image, so its pairs are fully masked)."""
+    rng = np.random.RandomState(seed)
+    n_obj = rng.randint(1, slots - 1, size=b)
+    pad = np.arange(slots)[None, :] > n_obj[:, None]
+    pad[0] = True
+    pair = np.stack([np.repeat(pad[:, :1], slots, axis=1), pad], axis=2)
+    pair = pair.reshape(b * slots, 2)
+    return pair[:, None, :] | np.triu(np.ones((2, 2), bool), 1)[None]
+
+
+MASK_CLASSES = {
+    "causal_key_pad": lambda: (2, 32, 50, causal_key_pad_mask(2, 50, 7)),
+    "pair_block": lambda: (3 * 9, 32, 2, pair_block_mask(3, 9, 8)),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(MASK_CLASSES))
+def test_fused_cpu_matches_pallas_interpret_mask_classes(kind):
+    b, h, length, mask = MASK_CLASSES[kind]()
+    q, k, v, _ = _setup(b, h, length, length, 8, seed=6)
+    temp = float(np.sqrt(8))
+    want = JA.fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(mask.astype(np.int8)), temp)
+    got = TA.fused_attention(_t(q), _t(k), _t(v),
+                             _t(mask.astype(np.int8)), temp)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    # fully masked rows (the pair block's empty slots) are exactly zero
+    dead = mask.all(axis=-1)
+    assert dead.any() == (kind == "pair_block")
+    assert np.all(got.numpy()[dead[:, None, :].repeat(h, 1)] == 0.0)
 
 
 def test_fully_masked_rows_are_exactly_zero():

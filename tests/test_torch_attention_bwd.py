@@ -11,6 +11,7 @@ import torch
 
 from image_caption_tpu.ops import attention as JA
 from image_caption_tpu_torch.ops import attention as TA
+from test_torch_attention import MASK_CLASSES
 
 
 @pytest.fixture(autouse=True)
@@ -47,7 +48,7 @@ def _t(x):
 
 
 SHAPES = [(2, 3, 5, 7, 4), (4, 32, 2, 2, 8), (2, 32, 37, 37, 8),
-          (2, 32, 50, 37, 8)]
+          (2, 32, 50, 50, 8), (2, 32, 50, 37, 8)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -66,6 +67,27 @@ def test_function_grads_match_pallas_vjp(shape):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", sorted(MASK_CLASSES))
+def test_function_grads_match_pallas_vjp_mask_classes(kind):
+    b, h, length, mask_b = MASK_CLASSES[kind]()
+    q, k, v, _, do = _setup(b, h, length, length, 8, seed=9)
+    mask = mask_b.astype(np.int8)
+    temp = float(np.sqrt(8))
+    _, vjp = jax.vjp(
+        lambda a, b_, c: JA.fused_attention(a, b_, c, jnp.asarray(mask),
+                                            temp),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    out = TA.fused_attention(*leaves, _t(mask), temp)
+    got = torch.autograd.grad(out, leaves, _t(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   rtol=1e-4, atol=1e-5)
+    dead = mask_b.all(axis=-1)
+    assert np.all(got[0].numpy()[dead[:, None, :].repeat(h, 1)] == 0.0)
 
 
 def test_fully_masked_rows_give_zero_dq_and_finite_grads():
@@ -144,6 +166,23 @@ def test_shared_memory_limit_raises_naming_it():
     lq = lk = 200                      # 2 * 200 * 200 * 4 B alone > 227 KB
     z = torch.zeros(1, 1, lq, 8)
     m = torch.zeros(1, lq, lk, dtype=torch.int8)
+    with pytest.raises(ValueError, match="232448"):
+        TA.fused_attention_bwd(z, z, z, m, z, 1.0)
+
+
+# the largest Lq = Lk that one backward block takes at each head dim: the
+# refusal rule of csrc/fused_attention_bwd.cu's launch (smem_bytes of one
+# unit against 232,448 bytes), which _check_bwd mirrors
+@pytest.mark.parametrize("dh,largest", [(8, 162), (5, 164), (6, 164),
+                                        (64, 118)])
+def test_bwd_accepts_up_to_the_largest_square_tile(dh, largest):
+    q, k, v, mask, do = _setup(2, 1, largest, largest, dh, seed=3)
+    dq, dk, dv = TA.fused_attention_bwd(_t(q), _t(k), _t(v), _t(mask),
+                                        _t(do), 1.0)
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    n = largest + 1
+    z = torch.zeros(1, 1, n, dh)
+    m = torch.zeros(1, n, n, dtype=torch.int8)
     with pytest.raises(ValueError, match="232448"):
         TA.fused_attention_bwd(z, z, z, m, z, 1.0)
 
