@@ -6,8 +6,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. card: its name and power limit; TF32 is switched off for matmuls and
    cuDNN, so float32 means float32 on the card as on the CPU;
-2. build: every CUDA kernel of the port, one ``nvcc`` per source, started
-   together, into ``image_caption_tpu_torch/_build/``;
+2. build: every CUDA kernel of the port and the native reward scorer, one
+   compiler (``nvcc``, or ``g++``) per source, started together, into
+   ``image_caption_tpu_torch/_build/``;
 3. kernel check: each kernel against its plain PyTorch version on the card,
    in float32 and bfloat16: the forward at the serving shapes, the
    decoder's training shapes, a ragged case and two shapes too large for
@@ -40,7 +41,37 @@ Phases, in order; any failed check raises and the script exits non-zero:
 9. card vs CPU: the same weights with all dropout off, 3 train steps on the
    card (kernels) and on the CPU (plain path): step-1 gradients within 1e-4
    norm-relative per tensor, the three losses within 2e-4;
-10. kernel check bottleneck: kernels #3 (one block) and #4 (a whole
+10. scst: the flagship RL preset at full width with attention dropout 0
+    (residual dropout 0.3 stays on), batch 32, 12,000 words, random
+    weights from seed 0, rewards from the native scorer over a frozen CIDEr
+    df written by ``build_doc_frequency`` over the batch's captions; the
+    batch's images share 4 captions that 40 XE updates teach first, so
+    that SCST starts, as users start it, from a model whose samples earn
+    rewards: 20 ``RLTrainer`` updates on the batch from those weights
+    four times,
+    with the pipelined schedule (``rl.pipeline_depth`` 1), the serial one,
+    the serial and the pipelined (losses, mean rewards, rows with a
+    non-zero reward, steps/s, host ms of scoring a step; each attention
+    kernel launched exactly 13 times a step; the two schedules'
+    parameters within 1e-5 norm-relative per tensor);
+11. profile scst step: one blocking SCST step under the profiler: device
+    busy against the host clock, idle share, the kernels that take the
+    most, the scoring's share of the step;
+12. scst loop: one epoch of ``train()`` with the RL preset on the
+    synthetic dataset (flush, valid decode, scores file, checkpoint), a
+    resumed second epoch, then the ``evaluation`` verb on that checkpoint
+    through ``main.main`` (beam 3; 3 launches of kernel #1);
+13. scst card vs CPU: all dropout off, 3 SCST steps (argmax) on phase
+    10's batch on the card and on the CPU, from fresh weights and from the
+    weights phase 10 started from: sampled tokens equal except where the
+    CPU's top-2 log-prob margin is below 1e-4, rewards of equal rows equal,
+    losses within 2e-4, both updating with the CPU's sample and rewards;
+    from fresh weights step-1 gradients within 1e-4 norm-relative per
+    tensor; from the trained ones each of step 1's kernel calls against
+    float64, within twice its plain version's error plus 1e-6 (there some
+    cross-attention gradients are a thousandth of the others', and no f32
+    formula computes them to 1e-4);
+14. kernel check bottleneck: kernels #3 (one block) and #4 (a whole
     identity run) against ``bottleneck_reference`` and ``stage_reference``
     at ResNet-101's four identity runs (2, 3, 22 and 2 blocks) on 192, 133,
     5, 3 and 1 crops (128-row tiles that straddle crops, a ragged last
@@ -49,21 +80,21 @@ Phases, in order; any failed check raises and the script exits non-zero:
     a third on half the SMs' worth of CTAs, are bitwise equal (a race in
     the grid barrier or a tile order that depends on the grid would show
     there);
-11. time bottleneck: per run at 192 crops, each kernel's device and call
+15. time bottleneck: per run at 192 crops, each kernel's device and call
     time beside its bound (and as TFLOP/s and a multiple of it), its
     plain version and the cuDNN yardstick (the same blocks as
     channels-last ``F.conv2d`` with the epilogues);
-12. extract: ``extract_features_batch`` at full width (YOLOv5x at 640,
+16. extract: ``extract_features_batch`` at full width (YOLOv5x at 640,
     ResNet-101 at 224, random weights from seed 0) on the flagship's slot
     contract (36 objects, ``cap_half``, ``max_obj`` 5), bf16, 70 images in
     batches of 32: images/s on both ResNet routes, exactly 4 launches of
     kernel #4 per batch, the two routes' features and detections compared;
     one batch under the profiler;
-13. caption: ``caption_images`` on 70 JPEGs with the flagship captioner at
+17. caption: ``caption_images`` on 70 JPEGs with the flagship captioner at
     full width, greedy and beam 3: images/s end to end, 3 launches of
     kernel #1 and 4 of kernel #4 per batch; one greedy run under the
     profiler;
-14. cpu check extract: 2 images at full width in float32, the card on the
+18. cpu check extract: 2 images at full width in float32, the card on the
     kernel route against the CPU on the plain route from the same weights:
     detections equal (except after a pick whose CPU score margin is below
     1e-4), features within 1e-3 x max|ref|.
@@ -75,6 +106,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -818,11 +850,13 @@ def profile_train_step(trainer, batch, card: str):
               f" ms  x{e.count:<6d} {e.key[:90]}", flush=True)
 
 
-def drive_train_loop(cfg, card: str, device: str = "cuda"):
+def drive_train_loop(cfg, card: str, device: str = "cuda", *,
+                     label: str = "train loop", then=None):
     """One epoch of ``train()`` on a synthetic dataset (feature files as
     ``.npy``: the card's machine may lack ``h5py``), then a second call that
     resumes from its checkpoint and trains epoch 2.  The model is ``cfg``'s
-    at full width, with the dataset's vocabulary."""
+    at full width, with the dataset's vocabulary.  ``then(run, data, out)``
+    runs last, before the dataset is removed."""
     from image_caption_tpu_torch.data.synthetic import \
         generate_synthetic_dataset
     from image_caption_tpu_torch.train.checkpoint import CheckpointManager
@@ -847,7 +881,7 @@ def drive_train_loop(cfg, card: str, device: str = "cuda"):
             caps = load_pickle(os.path.join(
                 out, "candidates", "valid.candidate.captions.pkl"))
             saved = CheckpointManager(os.path.join(out, "model")).all_epochs()
-            print(f"train loop: epoch {epochs} in {seconds:.2f} s, step "
+            print(f"{label}: epoch {epochs} in {seconds:.2f} s, step "
                   f"{state.step}, checkpoints {saved}, {len(caps)} valid "
                   f"captions, scores file epochs "
                   f"{scores.count('Epoch ')} [{card}]", flush=True)
@@ -858,9 +892,11 @@ def drive_train_loop(cfg, card: str, device: str = "cuda"):
                 raise AssertionError(f"train() after {epochs} epoch(s): "
                                      f"step {state.step}, checkpoints "
                                      f"{saved}, scores:\n{scores}")
-        print("train loop: scores of epoch 2: "
+        print(f"{label}: scores of epoch 2: "
               + "; ".join(scores.split("Epoch 2")[1].strip().splitlines()),
               flush=True)
+        if then is not None:
+            then(run, data, out)
 
 
 def train_against_cpu(cfg, card: str, device: str = "cuda"):
@@ -903,7 +939,441 @@ def train_against_cpu(cfg, card: str, device: str = "cuda"):
 
 
 # ---------------------------------------------------------------------------
-# Phases 10-11: the bottleneck kernels (#3, #4), checked and timed
+# Phases 10-13: self-critical (SCST) fine-tuning at full width
+# ---------------------------------------------------------------------------
+
+def scst_trainer(cfg, data_path: str, device: str, seed: int = 0, **over):
+    """An RLTrainer over the 12,000-word smoke vocabulary whose frozen
+    CIDEr df lies under ``data_path``; its host scoring is timed into the
+    trainer's ``score_s`` list, and the last rewards kept in
+    ``last_rewards``."""
+    from image_caption_tpu_torch.train.loop import RLTrainer
+    words = vocabulary(cfg.model.num_vocab)
+    run = cfg.with_overrides(**{"data.data_path": data_path}, **over)
+    trainer = RLTrainer(run, {w: i for i, w in words.items()},
+                        device=device, seed=seed)
+    score = trainer._host_rewards
+    trainer.score_s = []
+
+    def timed(sample_seq, captions):
+        t0 = time.perf_counter()
+        out = score(sample_seq, captions)
+        trainer.score_s.append(time.perf_counter() - t0)
+        trainer.last_rewards = out[0]
+        return out
+
+    trainer._host_rewards = timed
+    return trainer
+
+
+def write_batch_df(m, batch, directory: str):
+    """coco-val-df.p over the batch's captions, one document an image."""
+    from image_caption_tpu_torch.data.vocab import decode_captions
+    from image_caption_tpu_torch.metrics.cider import (build_doc_frequency,
+                                                       save_doc_frequency)
+    caps = decode_captions(batch[2], vocabulary(m.num_vocab))
+    save_doc_frequency(build_doc_frequency([c] for c in caps),
+                       os.path.join(directory, "coco-val-df.p"))
+
+
+def synchronize(device: str):
+    import torch
+    if device != "cpu":
+        torch.cuda.synchronize(device)
+
+
+def scst_batch(m, batch_size: int, seed: int, captions: int = 4):
+    """A train batch drawn as ``make_split`` draws one, but whose images
+    share ``captions`` captions of 8-16 words from 40 of the vocabulary,
+    round-robin, so that a short XE warm-up (``xe_warm_weights``) teaches
+    them and SCST starts, as users start it, from a model whose samples
+    earn rewards."""
+    f, p, _ = train_batch(m, batch_size, seed)
+    rng = np.random.RandomState(seed + 100)
+    distinct = np.zeros((captions, m.max_length), np.int32)
+    for i in range(captions):
+        n = rng.randint(8, 17)
+        distinct[i, 0] = 1
+        distinct[i, 1:n + 1] = rng.randint(4, 44, size=n)
+        distinct[i, n + 1] = 2
+    return f, p, distinct[np.arange(batch_size) % captions]
+
+
+def xe_warm_weights(cfg, batch, device: str, steps: int = 40):
+    """The weights (seed 0) after ``steps`` XE updates of ``cfg``'s model
+    on ``batch`` with dropout off at learning rate 1e-3, as CPU tensors
+    (at the preset's dropout 0.3 and 5e-4 the full-depth model has not
+    learnt the captions after 40 updates)."""
+    from image_caption_tpu_torch.train.loop import Trainer
+    warm = cfg.with_overrides(caption_model="Transformer", **{
+        "model.dropout": 0.0, "train.learning_rate": 1e-3})
+    trainer = Trainer(warm, device=device, seed=0)
+    for _ in range(steps):
+        trainer.train_step(*batch)
+    return {k: v.detach().cpu().clone()
+            for k, v in trainer.state.model.state_dict().items()}
+
+
+def drive_scst(cfg, card: str, device: str = "cuda"):
+    """20 SCST updates on one batch from the same weights, four times: the
+    pipelined schedule, the serial one, the serial and the pipelined
+    again (the order evens out drift on the host).  Returns each kernel's
+    launches over the first pipelined run, and the weights it started
+    from."""
+    from image_caption_tpu_torch.ops.attention import (fused_attention,
+                                                       fused_attention_bwd)
+    m = cfg.model
+    batch = scst_batch(m, cfg.train.batch_size, seed=2)
+    t0 = time.perf_counter()
+    start = xe_warm_weights(cfg, batch, device)
+    print(f"scst: start from 40 XE updates on the batch "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    order = ("pipelined", "serial", "serial", "pipelined")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_batch_df(m, batch, tmp)
+        trainers = [scst_trainer(cfg, tmp, device, **{
+            "rl.pipeline_depth": int(label == "pipelined")})
+            for label in order]
+        warm = scst_trainer(cfg, tmp, device, seed=1)
+    for trainer in trainers:
+        trainer.state.model.load_state_dict(start)
+    rc = trainers[0].reward_computer
+    print(f"scst: reward scorer {rc.backend}, frozen df "
+          f"{rc.uses_frozen_df}", flush=True)
+    if rc.backend != "native" or not rc.uses_frozen_df:
+        raise AssertionError("the SCST rewards must come from the native "
+                             "scorer over the frozen df")
+    # first-use set-up (cuBLAS, the allocator) outside the timed runs
+    for _ in range(2):
+        warm.train_step(*batch)
+    dev_batch = warm.to_device(batch)
+    runs, rates = [], {"pipelined": [], "serial": []}
+    for label, trainer in zip(order, trainers):
+        synchronize(device)
+        fused_attention.launches = fused_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        metrics = [trainer.train_step_device(dev_batch)
+                   for _ in range(TRAIN_STEPS)] + [trainer.flush()]
+        synchronize(device)
+        seconds = time.perf_counter() - t0
+        launches = {"fused_attention": fused_attention.launches,
+                    "fused_attention_bwd": fused_attention_bwd.launches}
+        runs.append(launches)
+        rates[label].append(TRAIN_STEPS / seconds)
+        metrics = [{k: float(v) for k, v in x.items()} for x in metrics
+                   if x is not None]
+        rewards = trainer.last_rewards
+        score_ms = 1e3 * statistics.median(trainer.score_s)
+        print(f"scst {label}: losses "
+              f"{' '.join(f'{x['loss']:.4f}' for x in metrics)}",
+              flush=True)
+        print(f"scst {label}: mean reward "
+              f"{' '.join(f'{x['reward']:.4f}' for x in metrics)}; last "
+              f"step {int((rewards > 0).sum())} of {rewards.size} rows with "
+              f"a non-zero reward, {int((rewards > 1e-3).sum())} above "
+              f"1e-3, max {rewards.max():.4f}", flush=True)
+        print(f"scst {label}: {TRAIN_STEPS / seconds:.3f} steps/s at batch "
+              f"{cfg.train.batch_size} ({TRAIN_STEPS} steps in "
+              f"{seconds:.3f} s, to the last update); scoring "
+              f"{score_ms:.3f} ms a step on the host (median) [{card}]",
+              flush=True)
+        print(f"scst {label}: launches over {TRAIN_STEPS} steps "
+              f"{launches}, want {LAUNCHES_PER_STEP} x {TRAIN_STEPS} each",
+              flush=True)
+        if len(metrics) != TRAIN_STEPS or not np.all(np.isfinite(
+                [v for x in metrics for v in x.values()])):
+            raise AssertionError(f"scst {label}: {len(metrics)} steps, "
+                                 f"metrics {metrics}")
+        want = LAUNCHES_PER_STEP * TRAIN_STEPS
+        if device != "cpu" and any(n != want for n in launches.values()):
+            raise AssertionError(f"scst {label}: launches {launches}, "
+                                 f"want {want}")
+    in_order = rates["pipelined"][:1] + rates["serial"] + \
+        rates["pipelined"][1:]
+    print(f"scst: steps/s in order {', '.join(order)}: "
+          f"{', '.join(f'{r:.3f}' for r in in_order)}; pipelined / serial "
+          f"{sum(rates['pipelined']) / sum(rates['serial']):.4f} [{card}]",
+          flush=True)
+    worst = 0.0
+    want = dict(trainers[1].state.model.named_parameters())
+    for name, p in trainers[0].state.model.named_parameters():
+        w = want[name].detach()
+        rel = ((p.detach() - w).norm() / w.norm().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+    print(f"scst: pipelined vs serial parameters after {TRAIN_STEPS} "
+          f"steps, norm-relative max {worst:.3e} (tol 1e-5)", flush=True)
+    if not worst <= 1e-5:
+        raise AssertionError(f"the two schedules' parameters differ by "
+                             f"{worst:.3e}")
+    if device != "cpu":
+        profile_scst_step(trainers[2], batch, card)
+    return runs[0], start
+
+
+def profile_scst_step(trainer, batch, card: str):
+    """One blocking SCST step under torch.profiler: device busy against
+    the step's host-clock time without the profiler, the kernels that take
+    the most, and the host scoring's share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    walls, scores = [], []
+    for _ in range(3):
+        n = len(trainer.score_s)
+        t0 = time.perf_counter()
+        trainer.train_step(*batch)
+        walls.append(time.perf_counter() - t0)
+        scores.append(sum(trainer.score_s[n:]))
+    wall_ms = 1e3 * statistics.median(walls)
+    score_ms = 1e3 * statistics.median(scores)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+    stats = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in stats) / 1e3
+    print(f"profile scst step: scoring {score_ms:.3f} ms of {wall_ms:.2f} ms"
+          f" on the host clock (share {score_ms / wall_ms:.4f}) [{card}]",
+          flush=True)
+    if busy_ms <= 0:
+        print("profile scst step: the profiler saw no device time; device "
+              "busy share not measured", flush=True)
+        return
+    print(f"profile scst step, batch {trainer.cfg.train.batch_size}: "
+          f"{wall_ms:.2f} ms on the host clock, device busy {busy_ms:.2f} "
+          f"ms, idle share {1 - busy_ms / wall_ms:.4f} [{card}]", flush=True)
+    top = sorted(stats, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    ours = [e for e in stats if "fused_attention" in e.key]
+    for e in top + [e for e in ours if e not in top]:
+        print(f"profile scst step:   {e.self_device_time_total / 1e3:9.3f}"
+              f" ms  x{e.count:<6d} {e.key[:90]}", flush=True)
+
+
+def drive_scst_loop(cfg, card: str, device: str = "cuda"):
+    """``train()`` of the RL preset (one epoch, then a resumed second) on
+    the synthetic dataset with its frozen CIDEr df, then the ``evaluation``
+    verb on the checkpoint through ``main.main``, beam 3."""
+    import dataclasses
+    from image_caption_tpu_torch.config import get_preset
+    from image_caption_tpu_torch.main import main as cli_main
+    from image_caption_tpu_torch.ops.attention import fused_attention
+    from image_caption_tpu_torch.utils.io import load_pickle
+
+    def evaluate(run, data, out):
+        # the flags that turn the preset into run's model
+        preset = dataclasses.asdict(get_preset(run.name).model)
+        sets = [f"--set=model.{k}={v}"
+                for k, v in dataclasses.asdict(run.model).items()
+                if preset[k] != v]
+        fused_attention.launches = 0
+        t0 = time.perf_counter()
+        cli_main(["--device", device, "--preset", run.name, *sets,
+                  "--data-path", data, "--output-path", out,
+                  "evaluation", "--split", "test", "--beam-size", "3"])
+        seconds = time.perf_counter() - t0
+        caps = load_pickle(os.path.join(
+            out, "candidates", "test.candidate.captions.pkl"))
+        with open(os.path.join(out, "test_scores.txt")) as f:
+            scores = f.read()
+        print(f"scst loop: evaluation of epoch 2 in {seconds:.2f} s, "
+              f"{len(caps)} test captions, fused_attention launches "
+              f"{fused_attention.launches} [{card}]", flush=True)
+        if (len(caps) != 8 or not scores.startswith("Epoch 2\n")
+                or "test_CIDEr" not in scores
+                or (device != "cpu" and fused_attention.launches != 3)):
+            raise AssertionError(f"evaluation: {len(caps)} captions, "
+                                 f"scores:\n{scores}")
+
+    drive_train_loop(cfg, card, device, label="scst loop", then=evaluate)
+
+
+@contextlib.contextmanager
+def recorded_attention_calls(device: str):
+    """Inside it, the inputs of every kernel #1 and #2 call on ``device``
+    are kept: yields {"fwd": [(q, k, v, mask, t)], "bwd": [(q, k, v, mask,
+    dO, t)]}.  The kernels' launch counts go on as without it."""
+    from image_caption_tpu_torch.ops import attention as A
+    fwd, bwd = A._fused_forward, A.fused_attention_bwd
+    calls = {"fwd": [], "bwd": []}
+
+    def keep(kind, args):
+        if args[0].device.type == device:
+            calls[kind].append([a.detach().clone() for a in args[:-1]]
+                               + [args[-1]])
+
+    def rec_fwd(*args):
+        keep("fwd", args)
+        return fwd(*args)
+
+    def rec_bwd(*args):
+        keep("bwd", args)
+        return bwd(*args)
+
+    rec_bwd.launches = bwd.launches      # the wrapper counts by this name
+    A._fused_forward, A.fused_attention_bwd = rec_fwd, rec_bwd
+    try:
+        yield calls
+    finally:
+        bwd.launches = rec_bwd.launches
+        A._fused_forward, A.fused_attention_bwd = fwd, bwd
+
+
+def attention_f64(q, k, v, mask_i8, t):
+    """The attention forward and its backward's (dq, dk, dv) as functions
+    of float64 copies of the inputs: the exact values the f32 kernels and
+    plain versions approximate."""
+    import torch
+    from image_caption_tpu_torch.ops.attention import masked_softmax
+    qd, kd, vd = (x.double() for x in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", qd / t, kd)
+    p = masked_softmax(s.masked_fill((mask_i8 != 0)[:, None],
+                                     float("-inf")))
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vd)
+
+    def bwd(d_out):
+        do = d_out.double()
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+        dp = torch.einsum("bhqd,bhkd->bhqk", do, vd)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        return (torch.einsum("bhqk,bhkd->bhqd", ds, kd) / t,
+                torch.einsum("bhqk,bhqd->bhkd", ds, qd) / t, dv)
+
+    return out, bwd
+
+
+def check_attention_against_f64(calls, card: str):
+    """Each recorded kernel #1 and #2 call, and its f32 plain version on
+    the same inputs, against float64: the norm-relative error of every
+    output.  A gradient that the loss barely feels (near-uniform attention
+    gives a dq a thousandth of its neighbours') is computed only to about
+    1e-4 by any f32 formula, so the bar is the plain version's own error:
+    the kernel's may be at most twice it, plus 1e-6."""
+    from image_caption_tpu_torch.ops import attention as A
+
+    def rel(a, b):
+        return ((a.double() - b).norm() / b.norm().clamp_min(1e-300)).item()
+
+    rows = []
+    for q, k, v, mask, t in calls["fwd"]:
+        want, _ = attention_f64(q, k, v, mask, t)
+        rows.append(("fwd out", tuple(q.shape), want.norm().item(),
+                     rel(A._fused_forward(q, k, v, mask, t), want),
+                     rel(A.attention_reference(q, k, v, mask != 0, t)[0],
+                         want)))
+    for q, k, v, mask, d_out, t in calls["bwd"]:
+        want = attention_f64(q, k, v, mask, t)[1](d_out)
+        got = A.fused_attention_bwd(q, k, v, mask, d_out, t)
+        plain = A.attention_bwd_reference(q, k, v, mask, d_out, t)
+        for name, g, pl, w in zip(("dq", "dk", "dv"), got, plain, want):
+            rows.append((f"bwd {name}", tuple(q.shape), w.norm().item(),
+                         rel(g, w), rel(pl, w)))
+    worst = max(rows, key=lambda r: r[3] / (2 * r[4] + 1e-6))
+    for name in ("fwd out", "bwd dq", "bwd dk", "bwd dv"):
+        mine = [r for r in rows if r[0] == name]
+        print(f"scst card vs cpu: {name} against float64 over "
+              f"{len(mine)} calls: kernel max {max(r[3] for r in mine):.3e},"
+              f" plain max {max(r[4] for r in mine):.3e} (norms "
+              f"{min(r[2] for r in mine):.3e}-{max(r[2] for r in mine):.3e})"
+              f" [{card}]", flush=True)
+    if not worst[3] <= 2 * worst[4] + 1e-6:
+        raise AssertionError(f"{worst[0]} at {worst[1]}: kernel error "
+                             f"{worst[3]:.3e} against float64, plain "
+                             f"{worst[4]:.3e}")
+
+
+def scst_against_cpu(cfg, weights, card: str, device: str = "cuda"):
+    """All dropout off, 3 SCST steps (argmax) on the ``scst`` batch on the
+    card (the kernels) and on the CPU (the plain path), from two starts:
+    fresh weights (seed 3) and ``weights`` (the ``scst`` phase's start,
+    whose samples earn rewards).  Sampled tokens equal except where the
+    CPU's top-2 log-prob margin is below 1e-4, the rewards of equal rows
+    equal; both then update with the CPU's sample and rewards: the three
+    losses within 2e-4.  From the fresh start, step-1 gradients within
+    1e-4 norm-relative per tensor; from ``weights``, whose trained
+    cross-attention leaves some gradients a thousandth of the others',
+    step 1's kernel calls against float64 beside their plain versions
+    (``check_attention_against_f64``)."""
+    import dataclasses
+    import torch
+    from image_caption_tpu_torch.rl.step import rl_sample, rl_update
+    off = cfg.with_overrides(**{"model.dropout": 0.0,
+                                "model.attention_dropout": 0.0})
+    assert off.rl.sample_mode == "argmax"
+    m = off.model
+    batch = scst_batch(m, off.train.batch_size, seed=2)
+    for start in ("fresh", "xe-warm"):
+        with tempfile.TemporaryDirectory() as tmp:
+            write_batch_df(m, batch, tmp)
+            gpu = scst_trainer(off, tmp, device, seed=3)
+            cpu = scst_trainer(off, tmp, "cpu")
+        if start == "xe-warm":
+            gpu.state.model.load_state_dict(weights)
+        cpu.state.model.load_state_dict(
+            {k: v.cpu() for k, v in gpu.state.model.state_dict().items()})
+        worst_grad, worst_loss, differ, rewarded = 0.0, 0.0, 0, 0
+        for step in range(3):
+            with recorded_attention_calls(device) as calls:
+                sg = rl_sample(gpu.state, gpu.to_device(batch), off, seed=0)
+                sc = rl_sample(cpu.state, cpu.to_device(batch), off, seed=0)
+                (seq_g, caps), (seq_c, _) = sg.host(), sc.host()
+                lp = torch.log_softmax(sc.logits.detach(), dim=-1)
+                top2 = lp.topk(2, dim=-1).values
+                margin = (top2[..., 0] - top2[..., 1]).numpy()   # [B, T]
+                diff = seq_g[:, 0] != seq_c[:, 0]
+                if np.any(diff & (margin >= 1e-4)):
+                    r, t = np.argwhere(diff & (margin >= 1e-4))[0]
+                    raise AssertionError(
+                        f"{start} step {step + 1}: sampled token ({r}, {t})"
+                        f" differs where the CPU margin is "
+                        f"{margin[r, t]:.3e}")
+                rows = ~diff.any(axis=1)
+                differ += int((~rows).sum())
+                rw_g, sc_g = gpu._host_rewards(seq_g, caps)
+                rw_c, sc_c = cpu._host_rewards(seq_c, caps)
+                if not (np.array_equal(rw_g[rows], rw_c[rows])
+                        and np.array_equal(sc_g[rows], sc_c[rows])):
+                    raise AssertionError(f"{start} step {step + 1}: "
+                                         "rewards of equal rows differ")
+                rewarded += int((rw_c > 1e-3).sum())
+                sg = dataclasses.replace(sg, seq=sc.seq.to(device))
+                mg = rl_update(gpu.state, sg, rw_c, sc_c, off)
+                mc = rl_update(cpu.state, sc, rw_c, sc_c, off)
+            for key in ("loss", "language_model_loss", "structure_loss"):
+                worst_loss = max(worst_loss,
+                                 abs(mg[key].item() - mc[key].item()))
+            print(f"scst card vs cpu: {start} step {step + 1} loss "
+                  f"{mg['loss'].item():.6f} vs {mc['loss'].item():.6f}, "
+                  f"reward {mg['reward'].item():.6f} vs "
+                  f"{mc['reward'].item():.6f}, {int(rows.sum())} of "
+                  f"{rows.size} rows sampled equal", flush=True)
+            if step > 0:
+                continue
+            want = dict(cpu.state.model.named_parameters())
+            for name, p in gpu.state.model.named_parameters():
+                g, w = p.grad.cpu(), want[name].grad
+                rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+                worst_grad = max(worst_grad, rel)
+                if start == "fresh" and not rel <= 1e-4:
+                    raise AssertionError(f"step-1 gradient of {name}: "
+                                         f"norm-relative error {rel:.3e}")
+            if start == "xe-warm":
+                check_attention_against_f64(calls, card)
+        print(f"scst card vs cpu: {start}: step-1 gradients norm-relative "
+              f"max {worst_grad:.3e}"
+              + (" (tol 1e-4)" if start == "fresh" else
+                 " (held against float64 call by call above)")
+              + f", losses max_abs_err {worst_loss:.3e} (tol 2e-4), "
+              f"{differ} row-steps sampled differently (all at CPU margins "
+              f"below 1e-4), {rewarded} of {3 * len(batch[2])} row-steps "
+              f"rewarded above 1e-3 [{card}]", flush=True)
+        if not worst_loss <= 2e-4:
+            raise AssertionError(f"card and CPU SCST losses differ by "
+                                 f"{worst_loss}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 14-15: the bottleneck kernels (#3, #4), checked and timed
 # ---------------------------------------------------------------------------
 
 def bottleneck_weights(run, seed: int, device):
@@ -1096,7 +1566,7 @@ def time_bottleneck(card: str):
 
 
 # ---------------------------------------------------------------------------
-# Phases 12-15: extraction and captioning from images at full width
+# Phases 16-18: extraction and captioning from images at full width
 # ---------------------------------------------------------------------------
 
 def letterboxed_canvases(n: int, seed: int):
@@ -1489,7 +1959,7 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build()
+    logs = _build.build(_build.KERNELS + _build.HOST_LIBS)
     print(f"build: {', '.join(logs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, log in logs.items():
@@ -1521,6 +1991,13 @@ def main() -> int:
     train_launches, _ = drive_train(xe, card)
     drive_train_loop(xe, card)
     train_against_cpu(xe, card)
+    rl = flagship.with_overrides(**{"model.attention_dropout": 0.0})
+    B.fused_stage.launches = B.fused_bottleneck.launches = 0
+    scst_launches, scst_weights = drive_scst(rl, card)
+    scst_launches.update(fused_stage=B.fused_stage.launches,
+                         fused_bottleneck=B.fused_bottleneck.launches)
+    drive_scst_loop(rl, card)
+    scst_against_cpu(rl, scst_weights, card)
 
     t0 = time.perf_counter()
     extractor = smoke_extractor(0, "cuda")
@@ -1547,25 +2024,28 @@ def main() -> int:
         entry("fused_attention",
               "image_caption_tpu_torch/csrc/fused_attention.cu",
               "image_caption_tpu/ops/attention.py:89",
-              {"serve": serve_launches, "train": fwd_train, "extract": 0,
+              {"serve": serve_launches, "train": fwd_train,
+               "scst": scst_launches["fused_attention"], "extract": 0,
                "caption": caption_launches["fused_attention"]},
               max_err, times, "a_encoder"),
         entry("fused_attention_bwd",
               "image_caption_tpu_torch/csrc/fused_attention_bwd.cu",
               "image_caption_tpu/ops/attention.py:125",
               {"serve": 0, "train": train_launches["fused_attention_bwd"],
-               "extract": 0, "caption": 0},
+               "scst": scst_launches["fused_attention_bwd"], "extract": 0,
+               "caption": 0},
               max_err_bwd, times_bwd, "a_encoder"),
         entry("fused_bottleneck", bneck_src,
               "image_caption_tpu/vision/pallas_bottleneck.py:43",
               {"serve": 0, "train": 0,
+               "scst": scst_launches["fused_bottleneck"],
                "extract": extract_launches["fused_bottleneck"],
                "caption": 0},
               max_err_bneck["fused_bottleneck"],
               times_bneck["fused_bottleneck"], "stage3_bfloat16"),
         entry("fused_stage", bneck_src,
               "image_caption_tpu/vision/pallas_bottleneck.py:139",
-              {"serve": 0, "train": 0,
+              {"serve": 0, "train": 0, "scst": scst_launches["fused_stage"],
                "extract": extract_launches["fused_stage"],
                "caption": caption_launches["fused_stage"]},
               max_err_bneck["fused_stage"], times_bneck["fused_stage"],

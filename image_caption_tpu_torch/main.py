@@ -3,8 +3,8 @@
 The reference dispatches its verbs through google-fire with experiments
 selected by editing ``core/config.py`` (``main.py:19-22,250-251``); here
 the preset and every config field are flags, as in the JAX package's
-``main.py``.  The port has the ``train`` and ``caption`` verbs so far; they
-run on the card unless ``--device`` says otherwise.
+``main.py``.  The port has the ``train``, ``evaluation`` and ``caption``
+verbs so far; they run on the card unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -55,6 +55,56 @@ def cmd_train(args) -> None:
           resume=not args.no_resume, device=args.device)
 
 
+def _restore_model(cfg: Config, epoch: Optional[int], device):
+    """The captioner of ``{output_path}/model/train_state_{epoch}.pt`` (the
+    model part only; the latest epoch when ``epoch`` is None) on
+    ``device``, and its epoch."""
+    from .models.captioner import Captioner
+    from .train.checkpoint import CheckpointManager
+    ckpt = CheckpointManager(os.path.join(cfg.data.output_path, "model"))
+    epoch = epoch if epoch is not None else ckpt.latest_epoch()
+    if epoch not in ckpt.all_epochs():
+        raise SystemExit(f"no checkpoint of epoch {epoch} under "
+                         f"{ckpt.directory}")
+    model = Captioner(cfg.model, device=device)
+    model.load_state_dict(ckpt.load_model_state(epoch))
+    return model, epoch
+
+
+def cmd_evaluation(args) -> None:
+    """main.py:156-190: restore a checkpoint, decode a split (greedy, or
+    beam with ``--beam-size``), write its candidates and score them."""
+    from .data.dataset import load_split
+    from .data.vocab import invert_vocab
+    from .metrics.evaluate import score_captions
+    from .serve import decode_split
+    from .train.logging import write_scores
+    from .utils.device import resolve_device
+    from .utils.io import load_pickle, save_pickle
+
+    cfg = _load_config(args)
+    d = cfg.data
+    device = resolve_device(args.device)
+    split = load_split(d.data_path, args.split, load_references=True,
+                       streaming=d.stream_features)
+    word_to_idx = split.word_to_idx or load_pickle(d.word_to_idx_path)
+    idx_to_word = invert_vocab(word_to_idx)
+
+    model, epoch = _restore_model(cfg, args.epoch, device)
+    candidates = decode_split(model, cfg, split, cfg.train.batch_size,
+                              idx_to_word, beam_size=args.beam_size,
+                              device=device)
+    save_pickle(candidates, os.path.join(
+        d.output_path, "candidates",
+        f"{args.split}.candidate.captions.pkl"))
+    if split.references is not None:
+        hypo = {i: [c] for i, c in enumerate(candidates)}
+        scores = score_captions(split.references, hypo)
+        write_scores(d.output_path, args.split, epoch, scores)
+        for name, value in scores.items():
+            print(f"{name}:\t{value}")
+
+
 def cmd_caption(args) -> None:
     """Batch captioning: a directory (or a list) of images -> one JSON line
     per image, streamed through load -> extract -> decode
@@ -63,9 +113,7 @@ def cmd_caption(args) -> None:
     ``RL_Transformer`` preset serves without an RL trainer) or, with
     ``--checkpoint``, from a reference ``model_N.pt``."""
     from .data.vocab import invert_vocab
-    from .models.captioner import Captioner
     from .serve import caption_images, caption_images_to_jsonl, list_images
-    from .train.checkpoint import CheckpointManager
     from .utils.device import resolve_device
     from .utils.io import load_pickle
     from .utils.weights import load_reference_checkpoint
@@ -84,13 +132,7 @@ def cmd_caption(args) -> None:
         model = load_reference_checkpoint(args.checkpoint, cfg.model,
                                           device=device)
     else:
-        ckpt = CheckpointManager(os.path.join(d.output_path, "model"))
-        epoch = args.epoch if args.epoch is not None else ckpt.latest_epoch()
-        if epoch not in ckpt.all_epochs():
-            raise SystemExit(f"no checkpoint of epoch {epoch} under "
-                             f"{ckpt.directory}")
-        model = Captioner(cfg.model, device=device)
-        model.load_state_dict(ckpt.load_model_state(epoch))
+        model, _ = _restore_model(cfg, args.epoch, device)
 
     # open the sink before the run, and write per batch: a bad --out fails
     # fast and a long run loses nothing already captioned
@@ -122,7 +164,7 @@ def cmd_caption(args) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="image_caption_tpu_torch")
     p.add_argument("--preset",
-                   default="maxlen49_36obj_1wordCount_256_25b_32h_"
+                   default="RL_maxlen49_36obj_1wordCount_256_25b_32h_"
                            "split_img_obj",
                    help=f"one of: {', '.join(list_presets())}")
     p.add_argument("--set", action="append", metavar="KEY=VALUE",
@@ -137,6 +179,13 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--no-resume", action="store_true")
     t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("evaluation")
+    e.add_argument("--split", default="test")
+    e.add_argument("--epoch", type=int, default=None,
+                   help="train_state_N.pt to score; the latest by default")
+    e.add_argument("--beam-size", type=int, default=None)
+    e.set_defaults(fn=cmd_evaluation)
 
     c = sub.add_parser("caption")
     c.add_argument("--image-dir", default=None,

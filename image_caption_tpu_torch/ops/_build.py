@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``image_caption_tpu_torch/_build/`` and loaded with ``ctypes``.  The
-library's file name carries a hash of the source and the flags, so a
-changed source is rebuilt.  A failed build raises with the compiler's
-output; nothing falls back to another implementation.
+``image_caption_tpu_torch/_build/`` and loaded with ``ctypes``.  The host
+library ``csrc/ngram_rewards.cpp`` (the RL reward scorer) is compiled the
+same way by ``g++``.  A library's file name carries a hash of its source,
+of every ``csrc/*.cuh`` header (CUDA sources only) and of the flags, so a
+changed source or header is rebuilt.  A failed build raises with the
+compiler's output; nothing falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -16,14 +18,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("fused_attention", "fused_attention_bwd", "fused_bottleneck")
+HOST_LIBS = ("ngram_rewards",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -41,38 +45,63 @@ def _nvcc() -> str:
         "CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError(
+        "g++ not found on PATH; the native reward scorer "
+        "(csrc/ngram_rewards.cpp) needs a host C++ compiler")
+
+
+def source_path(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_LIBS else f"{name}.cu")
+
+
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """``_build/lib<name>-<hash>.so``: the hash covers the source, the
+    flags and, for a CUDA source, the bytes of every ``csrc/*.cuh``."""
+    h = hashlib.sha256(source_path(name).read_bytes())
+    if name in HOST_LIBS:
+        h.update(" ".join(GXX_FLAGS).encode())
+    else:
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _command(name: str, out: Path) -> List[str]:
+    if name in HOST_LIBS:
+        return [_gxx(), *GXX_FLAGS, "-o", str(out), str(source_path(name))]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source_path(name))]
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together.  Returns each built
-    source's compiler output (register and shared-memory use from
-    ``-Xptxas -v``); a source already built maps to ''."""
+    compiler per source, all started together.  Returns each built
+    source's compiler output (for a CUDA source, register and
+    shared-memory use from ``-Xptxas -v``); a source already built maps to
+    ''."""
     todo = {n: library_path(n) for n in names}
     logs = {n: "" for n, p in todo.items() if p.exists()}
     todo = {n: p for n, p in todo.items() if not p.exists()}
     if not todo:
         return logs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     try:
         for name, path in todo.items():
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, path)
+                _command(name, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), tmp, path)
         for name, (proc, tmp, path) in procs.items():
             output, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed for csrc/{name}.cu "
+                    f"{Path(proc.args[0]).name} failed for "
+                    f"csrc/{source_path(name).name} "
                     f"(exit {proc.returncode}):\n{output}")
             os.replace(tmp, path)     # atomic: a reader never sees half a .so
             logs[name] = output
@@ -87,7 +116,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed."""
     if name not in _loaded:
         build((name,))
         _loaded[name] = ctypes.CDLL(str(library_path(name)))

@@ -5,8 +5,10 @@ reference loop (``main.py:25-153``): per-``log_every`` loss lines on fixed
 train and valid batches, per-``sample_every`` sample captions, and per
 epoch the valid loss, the valid decode (``serve.decode_split``, with the
 fused attention kernel), the coco metrics, the scores file, TensorBoard and
-a checkpoint with resume from the latest.  One GPU: the JAX package's
-``data_axis``/``model_axis`` are not used.
+a checkpoint with resume from the latest.  ``make_trainer`` gives the XE
+or focal ``Trainer``, or the self-critical ``RLTrainer`` for
+``RL_Transformer``.  One GPU: the JAX package's ``data_axis``/``model_axis``
+are not used.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -23,6 +26,9 @@ from ..data.prefetch import Prefetcher
 from ..data.vocab import decode_captions, invert_vocab
 from ..metrics.evaluate import is_scalar_score, score_captions
 from ..models.decoding import beam_score_mode, beam_search, greedy_decode
+from ..rl.rewards import RewardComputer
+from ..rl.step import (RLSample, rl_eval_step, rl_sample, rl_train_step,
+                       rl_update)
 from ..serve import decode_split
 from ..utils.debug import StepTimer
 from ..utils.device import DeviceLike, resolve_device
@@ -108,13 +114,113 @@ class Trainer:
         return ["loss"]          # WRITE_LOG for XE (core/config.py:65-66)
 
 
-def make_trainer(cfg: Config, **kw) -> Trainer:
-    """CAPTION_MODEL dispatch (main.py:19-22)."""
+class RLTrainer(Trainer):
+    """Self-critical trainer (``SelfCriticNetwork``, core/models.py:
+    138-211) on one device: the JAX package's two-phase schedule, sample ->
+    score on the host -> update (``rl/step.py``).
+
+    ``rl.pipeline_depth`` 0 is the serial schedule.  Depth 1 pipelines it:
+    the first ``train_step_device`` call samples its batch and returns
+    None; every later call scores the pending sample, updates with it, then
+    samples its own batch from the updated weights, and returns the
+    previous update's metrics.  Every sample sees the weights of the update
+    before it, as in the serial schedule, so the two give the same
+    trajectory; ``flush`` drains the pending update."""
+
+    def __init__(self, cfg: Config, word_to_idx: Dict[str, int], *,
+                 device: DeviceLike = None, seed: Optional[int] = None):
+        super().__init__(cfg, device=device, seed=seed)
+        # the frozen CIDEr df (loss.py:112-116, df='coco-val'): the table
+        # next to the splits, else metrics.cider's own resolution
+        df_path = os.path.join(cfg.data.data_path, "coco-val-df.p")
+        self.reward_computer = RewardComputer(
+            word_to_idx,
+            cider_reward_weight=cfg.rl.cider_reward_weight,
+            bleu_reward_weight=cfg.rl.bleu_reward_weight,
+            self_cider_reward_weight=cfg.rl.self_cider_reward_weight,
+            cider_df=df_path if os.path.exists(df_path) else "coco-val")
+        if self.reward_computer.ciderD.df_fallback:
+            print("[rl] WARNING: frozen CIDEr df not found "
+                  f"({df_path}); RL rewards fall back to per-batch corpus "
+                  "df — a DIFFERENT reward scale than the reference "
+                  "(loss.py:112-116).  Run the 'features' ETL or "
+                  "scripts/build_cider_df.py to generate it.")
+        self._pipeline = cfg.rl.pipeline_depth > 0
+        self._pending: Optional[RLSample] = None
+
+    def _host_rewards(self, sample_seq: np.ndarray, captions: np.ndarray):
+        """Score sampled sequences [B, N, T] against their captions on the
+        host -> ([B, N] rewards, [B, N] self-CIDEr)."""
+        b, n, t = sample_seq.shape
+        flat = sample_seq.reshape(-1, t)
+        target = np.repeat(captions[:, 1:], n, axis=0)
+        rewards = self.reward_computer.structure_scores(flat, target)
+        self_cider = self.reward_computer.self_cider_scores(flat,
+                                                            group_size=n)
+        return rewards.reshape(b, n), self_cider.reshape(b, n)
+
+    def train_step_device(self, batch):
+        """One SCST update on a device batch; metrics as device tensors.
+        Pipelined: the previous update's metrics, None on the first call."""
+        if not self._pipeline:
+            return rl_train_step(self.state, batch, self.cfg,
+                                 seed=self.step_seed,
+                                 score=self._host_rewards)
+        metrics = self.flush()
+        self._pending = rl_sample(self.state, batch, self.cfg,
+                                  seed=self.step_seed)
+        return metrics
+
+    def train_steps_device(self, batches):
+        """K updates and the drain of the pending one; metrics stacked [K]
+        per key."""
+        done = [self.train_step_device(b) for b in batches] + [self.flush()]
+        done = [m for m in done if m is not None]
+        return {k: torch.stack([m[k] for m in done])
+                for k in self.metric_keys}
+
+    def flush(self):
+        """Apply the pending pipelined update, if any, so that ``state`` is
+        current: call before reading the weights.  Returns its metrics or
+        None."""
+        if self._pending is None:
+            return None
+        pending, self._pending = self._pending, None
+        rewards, self_cider = self._host_rewards(*pending.host())
+        return rl_update(self.state, pending, rewards, self_cider, self.cfg)
+
+    def train_step(self, features, positions, captions) -> Dict[str, float]:
+        """One update, drained: this batch's metrics under either
+        schedule."""
+        metrics = self.train_step_device(
+            self.to_device((features, positions, captions)))
+        metrics = self.flush() or metrics
+        return {k: float(v) for k, v in metrics.items()}
+
+    def compute_loss(self, features, positions, captions
+                     ) -> Dict[str, float]:
+        self.flush()
+        metrics = rl_eval_step(self.state.model, self.cfg,
+                               self.to_device((features, positions,
+                                               captions)),
+                               score=self._host_rewards)
+        return {k: float(v) for k, v in metrics.items()}
+
+    @property
+    def metric_keys(self) -> List[str]:
+        # WRITE_LOG for RL (core/config.py:67-68)
+        return ["loss", "language_model_loss", "structure_loss", "reward"]
+
+
+def make_trainer(cfg: Config, word_to_idx: Optional[Dict[str, int]] = None,
+                 **kw) -> Trainer:
+    """CAPTION_MODEL dispatch (main.py:19-22): ``RLTrainer`` (which needs
+    the vocabulary) for ``RL_Transformer``, else ``Trainer``."""
     if cfg.caption_model == "RL_Transformer":
-        raise NotImplementedError(
-            "self-critical (SCST) training of RL_Transformer is not ported "
-            "yet: it comes with the port's SCST slice.  Train an XE preset "
-            "(caption_model 'Transformer') instead.")
+        if word_to_idx is None:
+            raise ValueError("the RL trainer scores captions: pass the "
+                             "vocabulary (word_to_idx)")
+        return RLTrainer(cfg, word_to_idx, **kw)
     return Trainer(cfg, **kw)
 
 
@@ -137,7 +243,7 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
         raise ValueError(f"{d.data_path}/train has no word_index.pkl")
     idx_to_word = invert_vocab(word_to_idx)
 
-    trainer = make_trainer(cfg, device=device)
+    trainer = make_trainer(cfg, word_to_idx, device=device)
     writer = TensorBoardWriter(os.path.join(d.output_path, "log"))
     ckpt = CheckpointManager(os.path.join(d.output_path, "model"),
                              keep=t.keep_checkpoints)
@@ -157,7 +263,7 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
     fixed_train = next(train_batches.epoch(0))[:3]
     fixed_valid = next(iter(valid_batches))[:3]
 
-    global_it = trainer.state.step
+    global_it = 0               # per run, as the JAX package counts
     for epoch in range(start_epoch, num_epochs + 1):
         t0 = time.time()
         timer = StepTimer()
@@ -181,6 +287,7 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
                                      for k in trainer.metric_keys))
 
             if global_it // t.sample_every > prev_it // t.sample_every:
+                trainer.flush()       # the weights must be current
                 cap = trainer.generate_caption(
                     fixed_train[0][:1], fixed_train[1][:1], idx_to_word)[0][0]
                 gts = decode_captions(fixed_train[2][:1], idx_to_word)
@@ -190,6 +297,7 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
                     print(f"[sample it {global_it}] {cap}")
 
         # ---- per-epoch evaluation (main.py:104-149) ----
+        trainer.flush()               # drain the pipelined RL tail
         train_loss = _epoch_loss(trainer, train_batches,
                                  limit=len(valid_batches))
         valid_loss = _epoch_loss(trainer, valid_batches)

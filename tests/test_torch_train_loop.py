@@ -140,13 +140,20 @@ def test_trainer_api(tiny_cfg):
                                                  b.parameters()))
 
 
-def test_make_trainer_names_the_scst_slice_for_rl(flagship_tiny_cfg,
-                                                  tiny_cfg):
+def test_make_trainer_builds_an_rl_trainer_on_the_cpu(flagship_tiny_cfg):
     assert flagship_tiny_cfg.caption_model == "RL_Transformer"
-    with pytest.raises(NotImplementedError, match="SCST"):
-        TLOOP.make_trainer(flagship_tiny_cfg, device="cpu")
-    assert isinstance(TLOOP.make_trainer(tiny_cfg, device="cpu"),
-                      TLOOP.Trainer)
+    vocab = {"<NULL>": 0, "<START>": 1, "<END>": 2, "<UNK>": 3}
+    vocab.update({f"w{i}": i
+                  for i in range(4, flagship_tiny_cfg.model.num_vocab)})
+    tr = TLOOP.make_trainer(flagship_tiny_cfg, vocab, device="cpu")
+    assert isinstance(tr, TLOOP.RLTrainer)
+    assert tr.device == torch.device("cpu") and tr.state.step == 0
+    assert tr.metric_keys == ["loss", "language_model_loss",
+                              "structure_loss", "reward"]
+    f, p, c = make_fake_batch(flagship_tiny_cfg, batch=4)
+    m = tr.train_step(f, p, c)
+    assert set(m) == set(tr.metric_keys) and tr.state.step == 1
+    assert all(np.isfinite(v) for v in m.values())
 
 
 def test_train_entry_points_need_cuda_unless_told_cpu(data, tmp_path,
