@@ -97,7 +97,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
 18. cpu check extract: 2 images at full width in float32, the card on the
     kernel route against the CPU on the plain route from the same weights:
     detections equal (except after a pick whose CPU score margin is below
-    1e-4), features within 1e-3 x max|ref|.
+    1e-4), features within 1e-3 x max|ref|;
+19. features: a synthetic COCO tree (96 train and 64 val JPEGs of 300-640
+    px, 5 captions an image from a small lexicon) in a temporary
+    directory; the ``features`` verb through ``main.main`` at full width
+    (YOLOv5x at 640, ResNet-101 at 224, bf16, batch 32) with phase 16's
+    extractor passed to ``run_etl`` as ``extractor_params``: the train
+    split alone (images/s end to end, the loader's route, exactly 4
+    launches of kernel #4 a batch), again under the profiler (the device's
+    idle share over the split), then every split (the artifacts' shapes
+    [N, 37, 2048] and [N, 37, 84]), then every split once more (each split
+    skipped on its fingerprint, no launch); the loader alone on the train
+    JPEGs (images/s on 8 threads); the train split's feature rows equal
+    ``extract_features_batch`` on the loader's canvases in the same padded
+    batches bit for bit.  Feature files are ``.hkl`` where
+    ``h5py`` imports, else ``.npy``; the loader is native where
+    ``csrc/image_loader.cpp`` builds (it needs ``jpeglib.h``), else PIL;
+20. roi: ``extract_features_roi`` at full width (trunk 448, detect 320),
+    bf16, on phase 16's 70 canvases in batches of 32: images/s, one batch
+    under the profiler, then 2 images in float32, the card against the
+    CPU, held as in phase 18;
+21. demo: the flagship captioner with random weights from seed 0 (its
+    vocabulary the size of phase 19's ``word_index.pkl``) saved by the
+    port's checkpoint manager; the ``demo`` verb through ``main.main`` on
+    one of phase 19's JPEGs, greedy with ``--save-img`` and then beam 3:
+    the caption line, the overlay files, 3 launches of kernel #1 and 4 of
+    kernel #4 a run.
 
 It prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without CUDA it exits
@@ -109,6 +134,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
@@ -143,6 +169,18 @@ EXTRACT_IMAGES, EXTRACT_BATCH = 70, 32
 # bf16 features of the kernel route (f32 epilogues) against the cuDNN
 # route (BN in bf16), 33 bottlenecks deep: x max|ref|
 EXTRACT_ROUTE_TOL = 5e-2
+# the roi feature mode's trunk and detector sizes (the data config's)
+ROI_TRUNK, ROI_DETECT = 448, 320
+# the synthetic COCO tree of the features phase: JPEGs per split, captions
+# an image, and the lexicon the captions are drawn from
+COCO_IMAGES = {"train": 96, "val": 64}
+COCO_CAPTIONS = 5
+LEXICON = ("a", "an", "the", "two", "man", "woman", "dog", "cat", "horse",
+           "bus", "train", "plate", "pizza", "table", "street", "field",
+           "beach", "kitchen", "red", "white", "small", "large", "young",
+           "sits", "stands", "runs", "rides", "holds", "eats", "on", "in",
+           "near", "with", "of", "at", "next", "to", "down", "grass",
+           "water")
 
 
 def card_line() -> str:
@@ -1661,45 +1699,48 @@ def drive_extract(params, cfg, card: str, device="cuda"):
             and bool(torch.isfinite(fk).all())):
         raise AssertionError("the two ResNet routes disagree")
     if device != "cpu":
-        profile_extract(params, cfg, batches[0][0], card)
+        profile_extract(lambda: extract_features_batch(
+            params, *batches[0][0], num_objects=m.num_objects,
+            max_obj=d.max_obj), card)
     return launches
 
 
-def profile_extract(params, cfg, batch, card: str):
-    """One extraction batch (kernel route) under torch.profiler: device
-    busy against the batch's host-clock time, and the top device ops."""
+def profile_extract(run, card: str, label: str = "extract"):
+    """One extraction batch (``run()``) under torch.profiler: device busy
+    against the batch's median host-clock time without the profiler, the
+    idle share, and the top device ops.  Returns the idle share, or None
+    when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from image_caption_tpu_torch.vision.pipeline import extract_features_batch
 
-    def run():
-        extract_features_batch(params, *batch,
-                               num_objects=cfg.model.num_objects,
-                               max_obj=cfg.data.max_obj)
+    def timed():
+        run()
         torch.cuda.synchronize()
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        run()
+        timed()
         walls.append(time.perf_counter() - t0)
     wall_ms = 1e3 * statistics.median(walls)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
+        timed()
     stats = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in stats) / 1e3
     if busy_ms <= 0:
-        print("profile extract: the profiler saw no device time; device busy "
-              "share not measured", flush=True)
-        return
-    print(f"profile extract, one batch of {EXTRACT_BATCH} images: "
+        print(f"profile {label}: the profiler saw no device time; device "
+              "busy share not measured", flush=True)
+        return None
+    idle = 1 - busy_ms / wall_ms
+    print(f"profile {label}, one batch of {EXTRACT_BATCH} images: "
           f"{wall_ms:.2f} ms on the host clock, device busy {busy_ms:.2f} ms,"
-          f" idle share {1 - busy_ms / wall_ms:.4f} [{card}]", flush=True)
+          f" idle share {idle:.4f} [{card}]", flush=True)
     top = sorted(stats, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
     for e in top:
-        print(f"profile extract:   {e.self_device_time_total / 1e3:9.3f} ms  "
+        print(f"profile {label}:   {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
+    return idle
 
 
 def write_jpegs(directory: str, n: int, seed: int):
@@ -1875,40 +1916,57 @@ def first_difference(got, want):
     return None
 
 
-def check_extract_against_cpu(params, cfg, card: str, device="cuda"):
-    """Two images at full width in float32: the card on the kernel route
-    against the CPU on the plain route, the same weights.  Detections
-    equal, except after a pick where the CPU's score margin (its pick's
-    score against the nearest other candidate score of the image) is
-    below 1e-4; features of slot 0 (the whole image) and of every image
-    whose detections agree within 1e-3 x max|ref|.  Every pick's margin
-    over the runner-up is printed."""
+def check_extract_against_cpu(params, cfg, card: str, device="cuda",
+                              roi: bool = False):
+    """Two images at full width in float32: the card against the CPU, the
+    same weights; crop mode on the kernel route (the CPU on the plain
+    route), or with ``roi`` the shared-trunk mode at trunk ``ROI_TRUNK``,
+    detecting at ``ROI_DETECT``.  Detections equal, except after a pick
+    where the CPU's score margin (its pick's score against the nearest
+    other candidate score of the image) is below 1e-4; features of slot 0
+    (the whole image) and of every image whose detections agree within
+    1e-3 x max|ref|.  Every pick's margin over the runner-up is printed."""
     import torch
     from image_caption_tpu_torch.vision import yolov5 as Y
+    from image_caption_tpu_torch.vision.ops import resize
     from image_caption_tpu_torch.vision.pipeline import (
-        _detect_and_select, extract_features_batch)
+        _detect_and_select, extract_features_batch, extract_features_roi)
     m, d = cfg.model, cfg.data
+    label = "cpu check roi" if roi else "cpu check extract"
     c, mt, sz = letterboxed_canvases(2, 7)
     cpu_params = params.to("cpu")
     kw = dict(num_objects=m.num_objects, max_obj=d.max_obj,
               compute_dtype=torch.float32)
-    fg, pg, _ = (t.cpu() for t in extract_features_batch(
-        params, c, mt, sz, use_kernel=True, device=device, **kw))
-    fc, pc, _ = extract_features_batch(cpu_params, c, mt, sz,
-                                       use_kernel=False, device="cpu", **kw)
+    det_size = ROI_DETECT if roi else 640
+
+    def extract(p, dev):
+        if roi:
+            return extract_features_roi(p, c, mt, sz, trunk_size=ROI_TRUNK,
+                                        detect_size=ROI_DETECT, device=dev,
+                                        **kw)
+        return extract_features_batch(p, c, mt, sz, device=dev,
+                                      use_kernel=dev != "cpu", **kw)
+
+    def det_view(t):               # the detector's input, as the mode has it
+        return t if det_size == 640 else resize(t, det_size, det_size)
+
+    fg, pg, _ = (t.cpu() for t in extract(params, device))
+    fc, pc, _ = extract(cpu_params, "cpu")
     sel = {}
     for dev, p in ((device, params), ("cpu", cpu_params)):
         t = [torch.as_tensor(a, device=dev).float() for a in (c, mt, sz)]
-        s = _detect_and_select(p, *t, num_objects=m.num_objects,
-                               cap_half=True, max_obj=d.max_obj,
-                               num_classes=80, compute_dtype=torch.float32)
+        s = _detect_and_select(p, det_view(t[0]), *t[1:],
+                               num_objects=m.num_objects, cap_half=True,
+                               max_obj=d.max_obj, num_classes=80,
+                               compute_dtype=torch.float32,
+                               det_scale=det_size / 640)
         sel[dev] = Y.Detections(*(a.cpu() for a in s.det))
     agree = []
     for i in range(2):
         got = Y.Detections(*(a[i] for a in sel[device]))
         want = Y.Detections(*(a[i] for a in sel["cpu"]))
-        raw = Y.yolov5_raw(cpu_params.yolo,
-                           torch.from_numpy(c[i:i + 1]).float() / 255.0)
+        raw = Y.yolov5_raw(cpu_params.yolo, det_view(
+            torch.from_numpy(c[i:i + 1]).float()) / 255.0)
         boxes, scores, classes = Y.decode_boxes_scores(cpu_params.yolo, raw)
         margins = pick_margins(boxes[0], scores[0], classes[0],
                                m.num_objects)
@@ -1916,27 +1974,339 @@ def check_extract_against_cpu(params, cfg, card: str, device="cuda"):
         j = first_difference(got, want)
         agree.append(j is None)
         if j is None:
-            print(f"cpu check extract: image {i}: {n_valid} detections "
-                  f"equal; smallest CPU margin over the runner-up "
+            print(f"{label}: image {i}: {n_valid} detections equal; "
+                  f"smallest CPU margin over the runner-up "
                   f"{min(margins[:max(n_valid, 1)]):.3e}", flush=True)
             continue
-        print(f"cpu check extract: image {i} differs from detection {j}, "
-              f"CPU score margin over the runner-up there {margins[j]:.3e}",
+        print(f"{label}: image {i} differs from detection {j}, CPU score "
+              f"margin over the runner-up there {margins[j]:.3e}",
               flush=True)
         if not margins[j] < 1e-4:
-            raise AssertionError(f"detections differ at image {i}, pick {j},"
-                                 f" where the CPU's margin is "
+            raise AssertionError(f"{label}: detections differ at image {i},"
+                                 f" pick {j}, where the CPU's margin is "
                                  f"{margins[j]:.3e}")
     slots = [slice(None) if ok else slice(0, 1) for ok in agree]
     err = max((fg[i, s] - fc[i, s]).abs().max().item()
               for i, s in enumerate(slots))
     ref = max(fc[i, s].abs().max().item() for i, s in enumerate(slots))
-    print(f"cpu check extract: features {tuple(fc.shape)} float32, card "
-          f"kernel route vs CPU plain route max_abs_err {err:.3e} (max|ref| "
-          f"{ref:.3e}, tol 1e-3 x max|ref|), positions max_abs_err "
-          f"{(pg - pc).abs().max().item():.3e} [{card}]", flush=True)
+    route = ("card vs CPU, no kernel on this path" if roi
+             else "card kernel route vs CPU plain route")
+    print(f"{label}: features {tuple(fc.shape)} float32, {route} "
+          f"max_abs_err {err:.3e} (max|ref| {ref:.3e}, tol 1e-3 x max|ref|),"
+          f" positions max_abs_err {(pg - pc).abs().max().item():.3e} "
+          f"[{card}]", flush=True)
     if not err <= 1e-3 * ref:
-        raise AssertionError(f"card and CPU features differ by {err:.3e}")
+        raise AssertionError(f"{label}: card and CPU features differ by "
+                             f"{err:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 19-21: the offline dataset build, roi mode and the demo
+# ---------------------------------------------------------------------------
+
+def write_coco_tree(root: str, seed: int = 13):
+    """A COCO-layout tree: ``annotations/captions_{train,val}2017.json``
+    with ``COCO_CAPTIONS`` captions an image drawn from ``LEXICON`` (with
+    capitals and punctuation the ETL strips), and
+    ``image/{train,val}2017/`` JPEGs of 300-640 px a side
+    (``write_jpegs``); image ids out of file order."""
+    rng = np.random.RandomState(seed)
+    ann_id = 0
+    for split, n in COCO_IMAGES.items():
+        image_dir = os.path.join(root, "image", f"{split}2017")
+        os.makedirs(image_dir)
+        paths = write_jpegs(image_dir, n, seed + len(split))
+        ids = rng.permutation(n) + (1 if split == "train" else 100000)
+        images, anns = [], []
+        for path, image_id in zip(paths, ids):
+            images.append({"id": int(image_id),
+                           "file_name": os.path.basename(path)})
+            for _ in range(COCO_CAPTIONS):
+                words = list(rng.choice(LEXICON, rng.randint(6, 14)))
+                words[0] = words[0].capitalize()
+                anns.append({"id": ann_id, "image_id": int(image_id),
+                             "caption": " ".join(words) + "."})
+                ann_id += 1
+        os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+        with open(os.path.join(root, "annotations",
+                               f"captions_{split}2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns}, f)
+
+
+def run_features_verb(params, data_path: str, coco_root: str, fmt: str,
+                      splits=None, device: str = "cuda"):
+    """The ``features`` verb through ``main.main`` on the card at the
+    flagship's widths, extracting with ``params`` (passed to ``run_etl``
+    as ``extractor_params``).  Returns (its standard output, seconds,
+    kernel #4 launches, kernel #3 launches)."""
+    import io
+    from image_caption_tpu_torch import main as M
+    from image_caption_tpu_torch.vision import bottleneck as B
+    from image_caption_tpu_torch.vision import etl
+    argv = ["--device", device, "--preset", FLAGSHIP, "--data-path",
+            data_path, "features", "--coco-root", coco_root, "--batch-size",
+            str(EXTRACT_BATCH), "--format", fmt]
+    if splits:
+        argv += ["--splits", *splits]
+    plain = etl.run_etl
+    out = io.StringIO()
+    B.fused_stage.launches = B.fused_bottleneck.launches = 0
+    etl.run_etl = lambda *a, **kw: plain(*a, extractor_params=params, **kw)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            M.main(argv)
+        synchronize(device)
+        seconds = time.perf_counter() - t0
+    finally:
+        etl.run_etl = plain
+    for line in out.getvalue().splitlines():
+        print(f"features verb: {line}", flush=True)
+    return (out.getvalue(), seconds, B.fused_stage.launches,
+            B.fused_bottleneck.launches)
+
+
+def feature_file(data_path: str, split: str, kind: str, fmt: str):
+    path = os.path.join(data_path, split, f"{split}.{kind}.{fmt}")
+    if fmt == "npy":
+        return np.load(path)
+    from image_caption_tpu_torch.utils.io import load_hkl
+    return load_hkl(path)
+
+
+def drive_features(params, cfg, card: str, workdir: str,
+                   device: str = "cuda"):
+    """``features`` on a synthetic COCO tree (96 train and 64 val JPEGs of
+    300-640 px) at full width, bf16, batch 32, extracting with ``params``:
+    the train split alone timed (images/s, exactly 4 launches of kernel #4
+    a batch), again under the profiler after its files are removed (the
+    device's idle share over the split), then every split (valid and test
+    extracted, train skipped), then every split once more (all skipped, no
+    launch).  The train split's feature rows must equal
+    ``extract_features_batch`` on the loader's canvases in the same padded
+    batches bit for bit.  Returns (data path, launches of the counted
+    runs, the train JPEGs)."""
+    import importlib.util
+    from torch.profiler import ProfilerActivity, profile
+    from image_caption_tpu_torch.utils.io import load_pickle
+    from image_caption_tpu_torch.vision.loader import (
+        load_letterboxed_batch, native_available)
+    from image_caption_tpu_torch.vision.pipeline import extract_features_batch
+    m, d = cfg.model, cfg.data
+    coco_root = os.path.join(workdir, "coco")
+    data_path = os.path.join(workdir, "data")
+    t0 = time.perf_counter()
+    write_coco_tree(coco_root)
+    # the card's machine may lack h5py: .npy then, which load_split reads
+    fmt = "hkl" if importlib.util.find_spec("h5py") else "npy"
+    route = "native" if native_available() else "PIL"
+    print(f"features: COCO tree of {COCO_IMAGES} JPEGs written in "
+          f"{time.perf_counter() - t0:.1f} s; feature files .{fmt}; loader "
+          f"route {route}", flush=True)
+    n_train = COCO_IMAGES["train"]
+    batches = {"train": -(-n_train // EXTRACT_BATCH)}
+    half = COCO_IMAGES["val"] // 2
+    batches["valid"] = -(-half // EXTRACT_BATCH)
+    batches["test"] = -(-(COCO_IMAGES["val"] - half) // EXTRACT_BATCH)
+
+    _, secs, stage, block = run_features_verb(params, data_path, coco_root,
+                                              fmt, ["train"], device)
+    launches = {"fused_stage": stage, "fused_bottleneck": block}
+    print(f"features train: {n_train} JPEGs in {secs:.4f} s, "
+          f"{n_train / secs:.2f} images/s end to end (captions, loading, "
+          f"extraction, writing) at batch {EXTRACT_BATCH}, bf16, loader "
+          f"{route}; launches {launches} over {batches['train']} batches, "
+          f"want fused_stage 4 per batch [{card}]", flush=True)
+    if device != "cpu" and launches != {"fused_stage": 4 * batches["train"],
+                                        "fused_bottleneck": 0}:
+        raise AssertionError(f"features launched {launches}")
+
+    for kind in ("features", "positions"):
+        os.remove(os.path.join(data_path, "train", f"train.{kind}.{fmt}"))
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if device != "cpu" else contextlib.nullcontext()) as prof:
+        _, psecs, *_ = run_features_verb(params, data_path, coco_root, fmt,
+                                         ["train"], device)
+    busy_ms = sum(e.self_device_time_total
+                  for e in device_kernels(prof)) / 1e3 if prof else 0.0
+    if busy_ms > 0:
+        print(f"profile features train: {secs * 1e3:.2f} ms on the host "
+              f"clock without the profiler ({psecs * 1e3:.2f} ms with it), "
+              f"device busy {busy_ms:.2f} ms, idle share "
+              f"{1 - busy_ms / (secs * 1e3):.4f} [{card}]", flush=True)
+    else:
+        print("profile features train: the profiler saw no device time; "
+              "device busy share not measured", flush=True)
+
+    out, _, stage, block = run_features_verb(params, data_path, coco_root,
+                                             fmt, device=device)
+    want = 4 * (batches["valid"] + batches["test"])
+    launches["fused_stage"] += stage
+    launches["fused_bottleneck"] += block
+    if out.count("fingerprint matches — skipping") != 1 or (
+            device != "cpu" and (stage, block) != (want, 0)):
+        raise AssertionError(f"features over every split launched "
+                             f"{stage} + {block}, want {want} (train "
+                             f"skipped)")
+    for split in ("train", "valid", "test"):
+        n = len(load_pickle(os.path.join(data_path, split,
+                                         f"{split}.file.names.pkl")))
+        shapes = [feature_file(data_path, split, kind, fmt).shape
+                  for kind in ("features", "positions")]
+        print(f"features {split}: {n} images, features {shapes[0]}, "
+              f"positions {shapes[1]}", flush=True)
+        if shapes != [(n, m.num_slots, 2048), (n, m.num_slots, 84)]:
+            raise AssertionError(f"features {split}: shapes {shapes}")
+
+    out, _, stage, block = run_features_verb(params, data_path, coco_root,
+                                             fmt, device=device)
+    skips = out.count("fingerprint matches — skipping")
+    print(f"features rerun: {skips} splits skipped on their fingerprint, "
+          f"launches {stage} + {block}, want 3 and 0", flush=True)
+    if skips != 3 or stage or block:
+        raise AssertionError("a rerun of features extracted again")
+
+    paths = list(load_pickle(os.path.join(data_path, "train",
+                                          "train.file.names.pkl")))
+    # the loader alone, as the ETL's stream calls it (8 decode threads)
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        canvases, metas, sizes = load_letterboxed_batch(
+            paths, 640, nthreads=8, io_pool=pool)
+        secs = time.perf_counter() - t0
+    print(f"features loader: {len(paths)} JPEGs decoded and letterboxed in "
+          f"{secs:.4f} s, {len(paths) / secs:.2f} images/s on 8 threads, "
+          f"route {route}", flush=True)
+    want_f = feature_file(data_path, "train", "features", fmt)
+    want_p = feature_file(data_path, "train", "positions", fmt)
+    for (parts, real), start in zip(
+            padded_batches(canvases, metas, sizes, EXTRACT_BATCH),
+            range(0, len(paths), EXTRACT_BATCH)):
+        f, p, _ = extract_features_batch(params, *parts,
+                                         num_objects=m.num_objects,
+                                         max_obj=d.max_obj, device=device)
+        rows = slice(start, start + real)
+        if not (np.array_equal(f[:real].cpu().numpy(), want_f[rows])
+                and np.array_equal(p[:real, :, :84].cpu().numpy(),
+                                   want_p[rows])):
+            raise AssertionError(f"features train rows {rows} differ from "
+                                 "extract_features_batch")
+    print(f"features: the train split's {len(paths)} rows equal "
+          f"extract_features_batch on the same canvases and batches bit "
+          f"for bit", flush=True)
+    return data_path, launches, paths
+
+
+def drive_roi(params, cfg, card: str, device: str = "cuda"):
+    """``extract_features_roi`` at full width (YOLOv5x detecting at
+    ``ROI_DETECT``, ResNet-101's trunk at ``ROI_TRUNK``), bf16, on phase
+    16's 70 canvases in batches of 32: images/s (median of 3 passes), one
+    batch under the profiler, then the card against the CPU in float32.
+    No kernel runs on this path; returns its launches of kernel #4."""
+    import torch
+    from image_caption_tpu_torch.vision import bottleneck as B
+    from image_caption_tpu_torch.vision.pipeline import extract_features_roi
+    m, d = cfg.model, cfg.data
+    batches = padded_batches(*letterboxed_canvases(EXTRACT_IMAGES, 7),
+                             EXTRACT_BATCH)
+    kw = dict(num_objects=m.num_objects, max_obj=d.max_obj,
+              trunk_size=ROI_TRUNK, detect_size=ROI_DETECT, device=device)
+
+    def run_pass():
+        outs = [extract_features_roi(params, *parts, **kw)[0][:real]
+                for parts, real in batches]
+        synchronize(device)
+        return torch.cat(outs)
+    run_pass()                                 # set-up, not counted
+    B.fused_stage.launches = B.fused_bottleneck.launches = 0
+    feats = run_pass()
+    launches = B.fused_stage.launches + B.fused_bottleneck.launches
+    if launches or not bool(torch.isfinite(feats).all()) or \
+            feats.shape != (EXTRACT_IMAGES, m.num_slots, 2048):
+        raise AssertionError(f"roi: {launches} kernel launches, features "
+                             f"{tuple(feats.shape)}")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_pass()
+        runs.append(time.perf_counter() - t0)
+    sec = statistics.median(runs)
+    print(f"roi: {EXTRACT_IMAGES} images in {sec:.4f} s (median of 3: "
+          f"{', '.join(f'{r:.4f}' for r in runs)}), "
+          f"{EXTRACT_IMAGES / sec:.2f} images/s at batch {EXTRACT_BATCH}, "
+          f"trunk {ROI_TRUNK}, detect {ROI_DETECT}, bf16 [{card}]",
+          flush=True)
+    if device != "cpu":
+        profile_extract(lambda: extract_features_roi(
+            params, *batches[0][0], **kw), card, "roi")
+    check_extract_against_cpu(params, cfg, card, device, roi=True)
+    return launches
+
+
+def drive_demo(params, cfg, card: str, data_path: str, image: str,
+               workdir: str, device: str = "cuda"):
+    """The ``demo`` verb through ``main.main`` on the card, greedy with
+    ``--save-img`` and then with ``--beam-size 3``, on one of phase 19's
+    JPEGs: the flagship captioner at full width with random weights from
+    seed 0 (its vocabulary the size of phase 19's ``word_index.pkl``),
+    saved through the port's checkpoint manager, and ``params`` as the
+    extractor.  Each run: its caption line, the overlay files, 3 launches
+    of kernel #1 (one decode call) and 4 of kernel #4 (one extraction).
+    Returns the launches of both runs."""
+    import io
+    from image_caption_tpu_torch import main as M
+    from image_caption_tpu_torch.ops.attention import fused_attention
+    from image_caption_tpu_torch.train.checkpoint import CheckpointManager
+    from image_caption_tpu_torch.train.state import create_train_state
+    from image_caption_tpu_torch.utils.io import load_pickle
+    from image_caption_tpu_torch.vision import bottleneck as B
+    from image_caption_tpu_torch.vision import pipeline as P
+    vocab = len(load_pickle(os.path.join(data_path, "train",
+                                         "word_index.pkl")))
+    over = ["--set", f"model.num_vocab={vocab}"]
+    demo_cfg = cfg.with_overrides(**{"model.num_vocab": vocab})
+    out_path = os.path.join(workdir, "out")
+    state = create_train_state(demo_cfg, device=device, seed=0)
+    CheckpointManager(os.path.join(out_path, "model")).save(1, state)
+    weights = os.path.join(workdir, "weights")
+    P._EXTRACTORS[(weights, device)] = params     # the calibrated weights
+    stem = os.path.splitext(os.path.basename(image))[0]
+    launches = {"fused_attention": 0, "fused_stage": 0}
+    cwd = os.getcwd()
+    os.chdir(workdir)                 # the overlays go under ./demo/
+    try:
+        for label, extra in (("greedy", []), ("beam3", ["--beam-size",
+                                                          "3"])):
+            fused_attention.launches = B.fused_stage.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                M.main(["--device", device, "--preset", FLAGSHIP, *over,
+                        "--data-path", data_path, "--output-path",
+                        out_path, "demo", "--image-path", image,
+                        "--save-img", "--weights-dir", weights, *extra])
+            secs = time.perf_counter() - t0
+            got = {"fused_attention": fused_attention.launches,
+                   "fused_stage": B.fused_stage.launches}
+            files = sorted(os.listdir(os.path.join("demo", stem, "YOLOv5")))
+            caption = buf.getvalue().splitlines()[0]
+            print(f"demo {label}: {caption!r} in {secs:.2f} s; launches "
+                  f"{got}, want 3 and 4; overlays {len(files)} files "
+                  f"[{card}]", flush=True)
+            if device != "cpu" and got != {"fused_attention": 3,
+                                           "fused_stage": 4}:
+                raise AssertionError(f"demo {label} launched {got}")
+            want = {f"det_{stem}.jpg", f"labels_{stem}.txt"}
+            if not want <= set(files) or (label == "greedy" and not any(
+                    f.startswith("0_") for f in files)) or not caption:
+                raise AssertionError(f"demo {label}: caption {caption!r}, "
+                                     f"overlays {files}")
+            for k in launches:
+                launches[k] += got[k]
+    finally:
+        os.chdir(cwd)
+        P._EXTRACTORS.clear()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1959,7 +2329,7 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build(_build.KERNELS + _build.HOST_LIBS)
+    logs = _build.build(_build.KERNELS + ("ngram_rewards",))
     print(f"build: {', '.join(logs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, log in logs.items():
@@ -2008,6 +2378,13 @@ def main() -> int:
     caption_launches = drive_caption(extractor, flagship, card)
     check_extract_against_cpu(extractor, flagship, card)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        data_path, features_launches, train_jpegs = drive_features(
+            extractor, flagship, card, tmp)
+        roi_launches = drive_roi(extractor, flagship, card)
+        demo_launches = drive_demo(extractor, flagship, card, data_path,
+                                   train_jpegs[0], tmp)
+
     def entry(name, source, replaces, by_path, err, rows, main_shape):
         row = rows[main_shape]
         return {"name": name, "route": "cuda", "source": source,
@@ -2026,28 +2403,34 @@ def main() -> int:
               "image_caption_tpu/ops/attention.py:89",
               {"serve": serve_launches, "train": fwd_train,
                "scst": scst_launches["fused_attention"], "extract": 0,
-               "caption": caption_launches["fused_attention"]},
+               "caption": caption_launches["fused_attention"],
+               "features": 0, "roi": 0,
+               "demo": demo_launches["fused_attention"]},
               max_err, times, "a_encoder"),
         entry("fused_attention_bwd",
               "image_caption_tpu_torch/csrc/fused_attention_bwd.cu",
               "image_caption_tpu/ops/attention.py:125",
               {"serve": 0, "train": train_launches["fused_attention_bwd"],
                "scst": scst_launches["fused_attention_bwd"], "extract": 0,
-               "caption": 0},
+               "caption": 0, "features": 0, "roi": 0, "demo": 0},
               max_err_bwd, times_bwd, "a_encoder"),
         entry("fused_bottleneck", bneck_src,
               "image_caption_tpu/vision/pallas_bottleneck.py:43",
               {"serve": 0, "train": 0,
                "scst": scst_launches["fused_bottleneck"],
                "extract": extract_launches["fused_bottleneck"],
-               "caption": 0},
+               "caption": 0,
+               "features": features_launches["fused_bottleneck"],
+               "roi": 0, "demo": 0},
               max_err_bneck["fused_bottleneck"],
               times_bneck["fused_bottleneck"], "stage3_bfloat16"),
         entry("fused_stage", bneck_src,
               "image_caption_tpu/vision/pallas_bottleneck.py:139",
               {"serve": 0, "train": 0, "scst": scst_launches["fused_stage"],
                "extract": extract_launches["fused_stage"],
-               "caption": caption_launches["fused_stage"]},
+               "caption": caption_launches["fused_stage"],
+               "features": features_launches["fused_stage"],
+               "roi": roi_launches, "demo": demo_launches["fused_stage"]},
               max_err_bneck["fused_stage"], times_bneck["fused_stage"],
               "stage3_bfloat16"),
     ]

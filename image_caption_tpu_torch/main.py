@@ -3,8 +3,9 @@
 The reference dispatches its verbs through google-fire with experiments
 selected by editing ``core/config.py`` (``main.py:19-22,250-251``); here
 the preset and every config field are flags, as in the JAX package's
-``main.py``.  The port has the ``train``, ``evaluation`` and ``caption``
-verbs so far; they run on the card unless ``--device`` says otherwise.
+``main.py``.  The verbs are ``train``, ``evaluation``, ``demo``,
+``caption`` and ``features``; they run on the card unless ``--device``
+says otherwise.
 """
 
 from __future__ import annotations
@@ -105,6 +106,66 @@ def cmd_evaluation(args) -> None:
             print(f"{name}:\t{value}")
 
 
+def cmd_demo(args) -> None:
+    """main.py:193-247: one image -> its caption, with ``--save-img`` the
+    detections and, for a greedy decode, one attention overlay per word
+    under ``./demo/<stem>/<image_model>``.  The extraction runs kernel #4
+    and the decode's encoder kernel #1."""
+    import numpy as np
+    import torch
+    from .data.vocab import decode_captions, invert_vocab
+    from .models.decoding import beam_score_mode, beam_search, greedy_decode
+    from .utils.device import resolve_device
+    from .utils.io import load_pickle
+    from .vision.pipeline import extract_single_image
+
+    cfg = _load_config(args)
+    d = cfg.data
+    device = resolve_device(args.device)
+    t0 = time.time()
+    feats, poss, boxes = extract_single_image(
+        args.image_path, image_model=d.image_model,
+        num_objects=cfg.model.num_objects, max_obj=args.max_obj,
+        weights_dir=args.weights_dir, device=device)
+    idx_to_word = invert_vocab(load_pickle(d.word_to_idx_path))
+    model, _ = _restore_model(cfg, args.epoch, device)
+
+    feats_b = torch.from_numpy(feats[None]).to(device)
+    poss_b = torch.from_numpy(poss[None]).to(device)
+    if args.beam_size and args.beam_size > 1:
+        tokens = beam_search(model, feats_b, poss_b,
+                             beam_size=args.beam_size,
+                             score_mode=beam_score_mode(cfg.caption_model),
+                             use_kernel=True, device=device)
+        attention = None
+    else:
+        tokens, attention = greedy_decode(model, feats_b, poss_b,
+                                          use_kernel=True,
+                                          return_attention=True,
+                                          device=device)
+    caption = decode_captions(tokens.cpu().numpy(), idx_to_word)[0]
+
+    if args.save_img:
+        from .vision.overlay import (save_attention_overlays,
+                                     save_detection_overlay)
+        out_dir = os.path.join(
+            "./demo", os.path.splitext(os.path.basename(args.image_path))[0],
+            d.image_model)
+        # position rows 1.. hold each detection's score one-hot
+        cls = np.argmax(poss[1:, 4:], axis=-1)
+        scr = np.max(poss[1:, 4:], axis=-1)
+        valid = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1]) > 0
+        save_detection_overlay(args.image_path, boxes[valid], scr[valid],
+                               cls[valid], out_dir)
+        if attention is not None:
+            save_attention_overlays(args.image_path,
+                                    attention[:, 0].cpu().numpy(), boxes,
+                                    caption, out_dir)
+
+    print(caption)
+    print(f"time: {time.time() - t0:.2f}s")
+
+
 def cmd_caption(args) -> None:
     """Batch captioning: a directory (or a list) of images -> one JSON line
     per image, streamed through load -> extract -> decode
@@ -161,6 +222,15 @@ def cmd_caption(args) -> None:
           file=sys.stderr)
 
 
+def cmd_features(args) -> None:
+    """features.py: the offline COCO build into ``--data-path``."""
+    from .vision.etl import run_etl
+    run_etl(_load_config(args), coco_root=args.coco_root,
+            splits=args.splits, batch_size=args.batch_size,
+            weights_dir=args.weights_dir, feature_format=args.format,
+            device=args.device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="image_caption_tpu_torch")
     p.add_argument("--preset",
@@ -187,6 +257,19 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--beam-size", type=int, default=None)
     e.set_defaults(fn=cmd_evaluation)
 
+    dm = sub.add_parser("demo")
+    dm.add_argument("--image-path", required=True)
+    dm.add_argument("--epoch", type=int, default=None,
+                    help="train_state_N.pt to use; the latest by default")
+    dm.add_argument("--beam-size", type=int, default=None)
+    dm.add_argument("--save-img", action="store_true",
+                    help="write the detection and attention overlays "
+                         "under ./demo/<image stem>/<image_model>")
+    dm.add_argument("--max-obj", type=int, default=None)
+    dm.add_argument("--weights-dir", default="./weights",
+                    help="yolov5x and resnet101 weights; random when absent")
+    dm.set_defaults(fn=cmd_demo)
+
     c = sub.add_parser("caption")
     c.add_argument("--image-dir", default=None,
                    help="caption every image in this directory (sorted)")
@@ -210,6 +293,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "of failing the run")
     c.add_argument("--verbose", action="store_true")
     c.set_defaults(fn=cmd_caption)
+
+    f = sub.add_parser("features")
+    f.add_argument("--coco-root", required=True,
+                   help="holds annotations/captions_{train,val}2017.json "
+                        "and image/{train,val}2017/")
+    f.add_argument("--splits", nargs="+",
+                   default=["train", "valid", "test"])
+    f.add_argument("--batch-size", type=int, default=64)
+    f.add_argument("--weights-dir", default="./weights",
+                   help="yolov5x and resnet101 weights; random when absent")
+    f.add_argument("--format", choices=("hkl", "npy"), default="hkl",
+                   help="feature files as hickle (needs h5py) or .npy")
+    f.set_defaults(fn=cmd_features)
     return p
 
 

@@ -3,11 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``image_caption_tpu_torch/_build/`` and loaded with ``ctypes``.  The host
-library ``csrc/ngram_rewards.cpp`` (the RL reward scorer) is compiled the
-same way by ``g++``.  A library's file name carries a hash of its source,
-of every ``csrc/*.cuh`` header (CUDA sources only) and of the flags, so a
-changed source or header is rebuilt.  A failed build raises with the
-compiler's output; nothing falls back to another implementation.
+libraries ``csrc/ngram_rewards.cpp`` (the RL reward scorer) and
+``csrc/image_loader.cpp`` (JPEG decode and letterbox, linked with
+``-pthread -ljpeg``) are compiled the same way by ``g++``.  A library's
+file name carries a hash of its source, of every ``csrc/*.cuh`` header
+(CUDA sources only) and of its flags, so a changed source, header or flag
+is rebuilt.  A failed build raises with the compiler's output; the
+callers decide what that means (a kernel has no fallback).
 """
 
 from __future__ import annotations
@@ -24,10 +26,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("fused_attention", "fused_attention_bwd", "fused_bottleneck")
-HOST_LIBS = ("ngram_rewards",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+# each host library's own flags: before the source, and the libraries it
+# links after it
+HOST_LIBS = {"ngram_rewards": ((), ()),
+             "image_loader": (("-pthread",), ("-ljpeg",))}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -50,8 +55,8 @@ def _gxx() -> str:
     if found:
         return found
     raise RuntimeError(
-        "g++ not found on PATH; the native reward scorer "
-        "(csrc/ngram_rewards.cpp) needs a host C++ compiler")
+        "g++ not found on PATH; the host libraries (csrc/*.cpp: the reward "
+        "scorer, the image loader) need a host C++ compiler")
 
 
 def source_path(name: str) -> Path:
@@ -63,7 +68,8 @@ def library_path(name: str) -> Path:
     flags and, for a CUDA source, the bytes of every ``csrc/*.cuh``."""
     h = hashlib.sha256(source_path(name).read_bytes())
     if name in HOST_LIBS:
-        h.update(" ".join(GXX_FLAGS).encode())
+        flags, libs = HOST_LIBS[name]
+        h.update(" ".join((*GXX_FLAGS, *flags, *libs)).encode())
     else:
         for header in sorted(CSRC.glob("*.cuh")):
             h.update(header.name.encode() + b"\0" + header.read_bytes())
@@ -73,7 +79,9 @@ def library_path(name: str) -> Path:
 
 def _command(name: str, out: Path) -> List[str]:
     if name in HOST_LIBS:
-        return [_gxx(), *GXX_FLAGS, "-o", str(out), str(source_path(name))]
+        flags, libs = HOST_LIBS[name]
+        return [_gxx(), *GXX_FLAGS, *flags, "-o", str(out),
+                str(source_path(name)), *libs]
     return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source_path(name))]
 
 

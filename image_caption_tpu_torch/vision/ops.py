@@ -1,5 +1,5 @@
-"""Image ops on the device: batched crop-and-resize, letterbox geometry, box
-unmapping.
+"""Image ops on the device: batched crop-and-resize, resize and letterbox,
+letterbox geometry, box unmapping.
 
 The counterpart of the JAX package's ``vision/ops.py``.  Cropping IS
 resizing: each output patch is sampled straight from the letterboxed
@@ -8,7 +8,11 @@ a = -0.5, no antialiasing, a per-box scale and translation); PyTorch has no
 such call (``F.interpolate``'s bicubic uses a = -0.75 and takes no
 translation), so this module builds the same dense [out, in] weight
 matrices per box, with JAX's normalisation and its zeroing of samples
-outside the image, and applies them as two batched matmuls.
+outside the image, and applies them as two batched matmuls.  ``resize``
+is ``jax.image.resize`` the same way, with its default ``antialias=True``:
+on a downscale the kernel widens by in/out (a low-pass filter).  The
+weights are built here rather than taken from ``F.interpolate``'s
+antialiased mode, which no test holds to JAX's.
 """
 
 from __future__ import annotations
@@ -35,31 +39,44 @@ def _triangle(x: torch.Tensor) -> torch.Tensor:
 _KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
 
 
-def resample_weights(lo: torch.Tensor, hi: torch.Tensor, in_size: int,
-                     out_size: int, method: str = "cubic") -> torch.Tensor:
-    """Sampling weights [..., out_size, in_size] that map the span
-    [lo, hi) (pixels, any leading shape) onto ``out_size`` samples: JAX's
-    ``compute_weight_mat`` with scale = out / max(hi - lo, 1e-3) and
-    translation = -lo * scale, in float32."""
+def _weights_at(sample: torch.Tensor, in_size: int, method: str,
+                kernel_scale: float = 1.0) -> torch.Tensor:
+    """Weights [..., out, in] of the float32 sample positions ``sample``
+    [..., out] (pixel centres minus 0.5), the kernel stretched by
+    ``kernel_scale``: the rest of JAX's ``compute_weight_mat``."""
     if method not in _KERNELS:
         raise ValueError(f"unknown resize method {method!r}; expected one "
                          f"of {sorted(_KERNELS)}")
-    lo = lo.float()
-    scale = out_size / torch.clamp(hi.float() - lo, min=1e-3)
-    translation = -lo * scale
-    inv_scale = 1.0 / scale
-    dev = lo.device
-    i = torch.arange(out_size, dtype=torch.float32, device=dev)
-    sample = ((i + 0.5) * inv_scale[..., None]
-              - (translation * inv_scale)[..., None] - 0.5)  # [..., out]
-    src = torch.arange(in_size, dtype=torch.float32, device=dev)
-    w = _KERNELS[method]((sample[..., :, None] - src).abs())  # [.., out, in]
+    src = torch.arange(in_size, dtype=torch.float32, device=sample.device)
+    dist = (sample[..., :, None] - src).abs()
+    if kernel_scale != 1.0:
+        dist = dist / torch.tensor(kernel_scale, dtype=torch.float32)
+    w = _KERNELS[method](dist)
     total = w.sum(dim=-1, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * _EPS32,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
     return torch.where(inside[..., None], w, torch.zeros_like(w))
+
+
+def resample_weights(lo: torch.Tensor, hi: torch.Tensor, in_size: int,
+                     out_size: int, method: str = "cubic") -> torch.Tensor:
+    """Sampling weights [..., out_size, in_size] that map the span
+    [lo, hi) (pixels, any leading shape) onto ``out_size`` samples: JAX's
+    ``compute_weight_mat`` with scale = out / max(hi - lo, 1e-3) and
+    translation = -lo * scale, in float32."""
+    lo = lo.float()
+    span = torch.clamp(hi.float() - lo, min=1e-3)
+    # tensor by tensor: ``out_size / span`` would multiply by a rounded
+    # reciprocal, an ulp off JAX's division
+    scale = torch.full_like(span, float(out_size)) / span
+    translation = -lo * scale
+    inv_scale = 1.0 / scale
+    i = torch.arange(out_size, dtype=torch.float32, device=lo.device)
+    sample = ((i + 0.5) * inv_scale[..., None]
+              - (translation * inv_scale)[..., None] - 0.5)  # [..., out]
+    return _weights_at(sample, in_size, method)
 
 
 def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor,
@@ -83,6 +100,46 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor,
     out = torch.matmul(wx.to(dt).reshape(b * m, s, w),
                        rows.reshape(b * m, w, s * c))
     return out.reshape(b, m, s, s, c).transpose(2, 3)
+
+
+def resize(images: torch.Tensor, out_h: int, out_w: int,
+           method: str = "linear") -> torch.Tensor:
+    """images [..., H, W, C] -> [..., out_h, out_w, C] in the images'
+    dtype: ``jax.image.resize`` over the two spatial dims, antialiased as
+    its default is (on a downscale the kernel widens by in/out); a dim
+    whose size stays is passed through, as JAX skips it."""
+    out = images
+    for axis, size in ((-3, out_h), (-2, out_w)):
+        n = images.shape[axis]
+        if size == n:
+            continue
+        # JAX's scale is a Python float and its inverse is rounded to
+        # float32 once; the sample positions are then float32 products
+        inv = 1.0 / (size / n)
+        i = torch.arange(size, dtype=torch.float32, device=images.device)
+        sample = (i + 0.5) * torch.tensor(inv, dtype=torch.float32) - 0.5
+        w = _weights_at(sample, n, method, max(inv, 1.0))
+        eq = "oh,...hwc->...owc" if axis == -3 else "ow,...hwc->...hoc"
+        out = torch.einsum(eq, w.to(images.dtype), out)
+    return out
+
+
+def letterbox_image(image, size: int = 640, method: str = "linear",
+                    fill: float = 114.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[H, W, 3] image (0..255, any device) -> (canvas [size, size, 3]
+    float32, meta [scale, top, left] float32): resized with the long side
+    to ``size`` (antialiased, in float32) and centred on ``fill``, as the
+    JAX package's ``letterbox_image``."""
+    image = torch.as_tensor(image).float()
+    r, nh, nw, top, left = letterbox_params(image.shape[0], image.shape[1],
+                                            size)
+    canvas = torch.full((size, size, 3), fill, dtype=torch.float32,
+                        device=image.device)
+    canvas[top:top + nh, left:left + nw] = resize(image, nh, nw, method)
+    meta = torch.tensor([r, top, left], dtype=torch.float32,
+                        device=image.device)
+    return canvas, meta
 
 
 def letterbox_params(h: int, w: int, size: int

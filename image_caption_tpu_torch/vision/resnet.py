@@ -13,12 +13,14 @@ goes through ``vision/bottleneck.fused_stage``: kernel #4 on CUDA tensors,
 one launch per run.  With ``use_kernel=False``, and for the stem, the
 strided and the downsample blocks, each conv is ``F.conv2d`` with BN in
 the compute dtype, as the JAX package's XLA route computes it.
+``resnet_feature_maps`` (the stage outputs the ``roi`` feature mode pools
+from) runs that route only.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +135,25 @@ def resnet_features(params: Params, images: torch.Tensor, *,
             x = fused_stage(x.contiguous(memory_format=torch.channels_last),
                             *stack_identity_blocks(run))
     return x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype).float()
+
+
+def resnet_feature_maps(params: Params, images: torch.Tensor, *,
+                        compute_dtype=torch.float32) -> List[torch.Tensor]:
+    """[N, H, W, 3] ImageNet-normalized images -> the four stage outputs
+    [C2, C3, C4, C5] (strides 4, 8, 16 and 32) as [N, h, w, C] views in
+    the compute dtype, on the plain route: the JAX package computes them
+    outside its Pallas kernel."""
+    x = images.to(compute_dtype).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    x = torch.relu(_bn(_conv(x, params["stem"]["conv"], 2, 3),
+                       params["stem"]["bn"]))
+    x = F.max_pool2d(x, 3, 2, 1)
+    maps = []
+    for i, blocks in enumerate(params["layers"]):
+        for b, block in enumerate(blocks):
+            x = _bottleneck(block, x, 2 if (b == 0 and i > 0) else 1)
+        maps.append(x.permute(0, 2, 3, 1))
+    return maps
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ from image_caption_tpu_torch.models.captioner import Captioner
 from image_caption_tpu_torch.main import main as cli_main
 from image_caption_tpu_torch.serve import caption_images, decode_split
 from image_caption_tpu_torch.vision import pipeline as TP
-from image_caption_tpu_torch.vision.etl import stream_extracted_batches
+from image_caption_tpu_torch.vision.etl import (run_etl,
+                                                stream_extracted_batches)
 from image_caption_tpu_torch.vision.resnet import init_resnet
 from image_caption_tpu_torch.vision.yolov5 import init_yolov5
 
@@ -123,8 +124,10 @@ def _tiny_extractor():
 @pytest.mark.parametrize("entry", [
     "Captioner", "greedy_decode", "beam_search", "decode_split",
     "caption_images", "stream_extracted_batches", "extract_features_batch",
-    "init_extractor", "caption verb"])
-def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda):
+    "init_extractor", "caption verb", "run_etl", "extract_features_roi",
+    "extract_single_image", "features verb", "demo verb"])
+def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda,
+                                                tmp_path):
     if entry in ("Captioner", "init_extractor"):
         make = Captioner if entry == "Captioner" else \
             lambda m: TP.init_extractor()
@@ -136,6 +139,17 @@ def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda):
             cli_main(["caption", "--images", "a.jpg"])
         with pytest.raises(SystemExit, match="no images"):
             cli_main(["--device", "cpu", "caption"])
+        return
+    if entry in ("features verb", "demo verb"):
+        # on the CPU each gets past the device to its first file
+        argv = (["features", "--coco-root", str(tmp_path / "none")]
+                if entry == "features verb" else
+                ["demo", "--image-path", str(tmp_path / "none.jpg")])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main(["--data-path", str(tmp_path / "d")] + argv)
+        with pytest.raises(FileNotFoundError):
+            cli_main(["--device", "cpu", "--data-path",
+                      str(tmp_path / "d")] + argv)
         return
     model = Captioner(tiny_cfg.model, device="cpu")
     f, p, c = make_fake_batch(tiny_cfg, batch=2)
@@ -158,7 +172,47 @@ def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda):
         "extract_features_batch": lambda **kw: TP.extract_features_batch(
             extractor, canvases, metas, sizes, num_objects=4, crop_size=32,
             **kw),
+        "extract_features_roi": lambda **kw: TP.extract_features_roi(
+            extractor, canvases, metas, sizes, num_objects=4, trunk_size=32,
+            **kw),
+        "extract_single_image": lambda **kw: TP.extract_single_image(
+            _jpeg(tmp_path), num_objects=4, **kw),
+        "run_etl": lambda **kw: run_etl(
+            tiny_cfg.with_overrides(**{
+                "data.data_path": str(tmp_path / "data")}),
+            coco_root=_coco_root(tmp_path), splits=["train"],
+            batch_size=1, extractor_params=extractor, **kw),
     }
-    with pytest.raises(RuntimeError, match="CUDA"):
-        calls[entry]()
-    calls[entry](device="cpu")
+    if entry == "extract_single_image":
+        # the extractor it would load: the tiny one, not random YOLOv5x
+        for dev in ("cpu", "cuda"):
+            TP._EXTRACTORS[(None, dev)] = extractor
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            calls[entry]()
+        calls[entry](device="cpu")
+    finally:
+        TP._EXTRACTORS.clear()
+
+
+def _jpeg(directory, name="im.jpg", size=(40, 56)):
+    from PIL import Image
+    path = os.path.join(str(directory), name)
+    Image.fromarray(np.random.RandomState(0).randint(
+        0, 256, size + (3,), np.uint8)).save(path)
+    return path
+
+
+def _coco_root(directory) -> str:
+    """A COCO tree of one train image with one caption."""
+    import json
+    root = os.path.join(str(directory), "coco")
+    os.makedirs(os.path.join(root, "image", "train2017"), exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    _jpeg(os.path.join(root, "image", "train2017"), "a.jpg")
+    with open(os.path.join(root, "annotations", "captions_train2017.json"),
+              "w") as f:
+        json.dump({"images": [{"id": 1, "file_name": "a.jpg"}],
+                   "annotations": [{"image_id": 1,
+                                    "caption": "A dog."}]}, f)
+    return root

@@ -126,14 +126,16 @@ def test_bf16_default_runs_close_to_f32(extractors):
         5e-2 * f32[:, 0].abs().max()
 
 
-@pytest.mark.parametrize("mode,model,error", [
-    ("roi", "YOLOv5", NotImplementedError),
-    ("crop", "FasterRCNN", NotImplementedError),
-    ("ROI", "YOLOv5", ValueError), ("crop", "yolo", ValueError)])
-def test_validate_feature_mode(mode, model, error):
+@pytest.mark.parametrize("mode,model,sizes,error", [
+    ("roi", "YOLOv5", {"roi_trunk_size": 500}, ValueError),
+    ("crop", "FasterRCNN", {}, NotImplementedError),
+    ("ROI", "YOLOv5", {}, ValueError), ("crop", "yolo", {}, ValueError)])
+def test_validate_feature_mode(mode, model, sizes, error):
     with pytest.raises(error):
-        TP.validate_feature_mode(mode, model)
+        TP.validate_feature_mode(mode, model, **sizes)
     TP.validate_feature_mode("crop", "YOLOv5")
+    TP.validate_feature_mode("roi", "YOLOv5", roi_trunk_size=448,
+                             roi_detect_size=320)
 
 
 def test_parameters_must_lie_on_the_device(extractors):
