@@ -83,7 +83,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 15. time bottleneck: per run at 192 crops, each kernel's device and call
     time beside its bound (and as TFLOP/s and a multiple of it), its
     plain version and the cuDNN yardstick (the same blocks as
-    channels-last ``F.conv2d`` with the epilogues);
+    channels-last ``F.conv2d`` with the epilogues); then kernel #4's
+    float32 route at the Faster R-CNN batch's 1184 crops, each run checked
+    against ``stage_reference`` (1e-4 x max|ref|) and timed beside its
+    bound, its plain version and cuDNN float32;
 16. extract: ``extract_features_batch`` at full width (YOLOv5x at 640,
     ResNet-101 at 224, random weights from seed 0) on the flagship's slot
     contract (36 objects, ``cap_half``, ``max_obj`` 5), bf16, 70 images in
@@ -122,7 +125,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
     port's checkpoint manager; the ``demo`` verb through ``main.main`` on
     one of phase 19's JPEGs, greedy with ``--save-img`` and then beam 3:
     the caption line, the overlay files, 3 launches of kernel #1 and 4 of
-    kernel #4 a run.
+    kernel #4 a run;
+22. frcnn extract: ``init_frcnn_extractor``'s random weights from seed 0
+    (ResNet-50-FPN + ResNet-101) with each ResNet block's last BN scale
+    0.2 and four heads scaled by their outputs on one batch
+    (``smoke_frcnn_extractor``); ``extract_features_frcnn`` at full width
+    (800-px canvases, 256 proposals, 36 detections, 37 crops of 224 px an
+    image), float32, 70 canvases in batches of 32: images/s on both
+    ResNet routes, 4 launches of kernel #4 a batch, valid slots per image
+    (none anywhere fails), the routes' detections equal and features
+    within 1e-3 x max|ref|, peak device memory and one batch under the
+    profiler;
+23. frcnn check: 2 images, the card (kernel route) against the CPU (plain
+    route): proposals equal except from an RPN pick whose CPU margin or
+    per-level top-k gap is below 1e-4, detections equal except from a
+    pick whose CPU margin is below 1e-4; features within 1e-3 x max|ref|
+    and positions within 1e-5;
+24. frcnn caption: ``caption_images`` on 70 JPEGs with the FRCNN preset's
+    captioner at full width (random weights, seed 0), greedy and beam 3:
+    images/s end to end, 2 launches of kernel #1 (the preset's two
+    encoder blocks) and 4 of kernel #4 a batch;
+25. frcnn features: the ``features`` verb with the FRCNN preset on phase
+    19's COCO tree, every split: images/s, 4 launches of kernel #4 a
+    batch, artifacts [N, 37, 2048] and [N, 37, 95], a rerun that skips
+    every split;
+26. frcnn demo: the ``demo`` verb with the FRCNN preset's captioner,
+    greedy with overlays and beam 3: 2 launches of kernel #1 and 4 of #4
+    a run.
 
 It prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without CUDA it exits
@@ -171,6 +200,13 @@ EXTRACT_IMAGES, EXTRACT_BATCH = 70, 32
 EXTRACT_ROUTE_TOL = 5e-2
 # the roi feature mode's trunk and detector sizes (the data config's)
 ROI_TRUNK, ROI_DETECT = 448, 320
+# Faster R-CNN: its preset, canvas, crops a batch (32 images x the whole
+# image and 36 detections), and the float32 features of kernel #4's route
+# against cuDNN's, 33 bottlenecks deep: x max|ref|
+FRCNN_PRESET = "maxlen49_36obj_1wordCount_frcnn_256_25b_32h"
+FRCNN_CANVAS = 800
+FRCNN_CROPS = 32 * 37
+FRCNN_ROUTE_TOL = 1e-3
 # the synthetic COCO tree of the features phase: JPEGs per split, captions
 # an image, and the lexicon the captions are drawn from
 COCO_IMAGES = {"train": 96, "val": 64}
@@ -1607,17 +1643,17 @@ def time_bottleneck(card: str):
 # Phases 16-18: extraction and captioning from images at full width
 # ---------------------------------------------------------------------------
 
-def letterboxed_canvases(n: int, seed: int):
-    """``n`` uint8 640-px canvases letterboxed as the loader does (content
-    centred on gray 114) from random images of 300-640 px a side, with
-    their metas [n, 3] and original sizes [n, 2]."""
+def letterboxed_canvases(n: int, seed: int, size: int = 640):
+    """``n`` uint8 ``size``-px canvases letterboxed as the loader does
+    (content centred on gray 114) from random images of 300-640 px a side,
+    with their metas [n, 3] and original sizes [n, 2]."""
     from image_caption_tpu_torch.vision.ops import letterbox_params
     rng = np.random.RandomState(seed)
-    canvases = np.full((n, 640, 640, 3), 114, np.uint8)
+    canvases = np.full((n, size, size, 3), 114, np.uint8)
     metas, sizes = [], []
     for i in range(n):
         h, w = rng.randint(300, 641, size=2)
-        r, nh, nw, top, left = letterbox_params(h, w, 640)
+        r, nh, nw, top, left = letterbox_params(h, w, size)
         canvases[i, top:top + nh, left:left + nw] = rng.randint(
             0, 256, (nh, nw, 3))
         metas.append([r, top, left])
@@ -2034,16 +2070,18 @@ def write_coco_tree(root: str, seed: int = 13):
 
 
 def run_features_verb(params, data_path: str, coco_root: str, fmt: str,
-                      splits=None, device: str = "cuda"):
-    """The ``features`` verb through ``main.main`` on the card at the
-    flagship's widths, extracting with ``params`` (passed to ``run_etl``
-    as ``extractor_params``).  Returns (its standard output, seconds,
-    kernel #4 launches, kernel #3 launches)."""
+                      splits=None, device: str = "cuda",
+                      preset: str = FLAGSHIP):
+    """The ``features`` verb through ``main.main`` on the card with
+    ``preset`` (the flagship's widths by default), extracting with
+    ``params`` (passed to ``run_etl`` as ``extractor_params``).  Returns
+    (its standard output, seconds, kernel #4 launches, kernel #3
+    launches)."""
     import io
     from image_caption_tpu_torch import main as M
     from image_caption_tpu_torch.vision import bottleneck as B
     from image_caption_tpu_torch.vision import etl
-    argv = ["--device", device, "--preset", FLAGSHIP, "--data-path",
+    argv = ["--device", device, "--preset", preset, "--data-path",
             data_path, "features", "--coco-root", coco_root, "--batch-size",
             str(EXTRACT_BATCH), "--format", fmt]
     if splits:
@@ -2243,16 +2281,24 @@ def drive_roi(params, cfg, card: str, device: str = "cuda"):
     return launches
 
 
+def encoder_launches(m) -> int:
+    """Kernel #1's launches in one decode call: the encoder's blocks, and
+    the pair block where image and objects are encoded apart."""
+    return m.encode_num_blocks + int(m.split_image_objects)
+
+
 def drive_demo(params, cfg, card: str, data_path: str, image: str,
-               workdir: str, device: str = "cuda"):
+               workdir: str, device: str = "cuda", preset: str = FLAGSHIP):
     """The ``demo`` verb through ``main.main`` on the card, greedy with
     ``--save-img`` and then with ``--beam-size 3``, on one of phase 19's
-    JPEGs: the flagship captioner at full width with random weights from
-    seed 0 (its vocabulary the size of phase 19's ``word_index.pkl``),
-    saved through the port's checkpoint manager, and ``params`` as the
-    extractor.  Each run: its caption line, the overlay files, 3 launches
-    of kernel #1 (one decode call) and 4 of kernel #4 (one extraction).
-    Returns the launches of both runs."""
+    JPEGs: ``preset``'s captioner (``cfg``; the flagship's by default) at
+    full width with random weights from seed 0 (its vocabulary the size of
+    the ``word_index.pkl`` under ``data_path``), saved through the port's
+    checkpoint manager, and ``params`` as the extractor of
+    ``cfg.data.image_model``.  Each run: its caption line, the overlay
+    files, the encoder's launches of kernel #1 (one decode call: 3 for the
+    flagship) and 4 of kernel #4 (one extraction).  Returns the launches
+    of both runs."""
     import io
     from image_caption_tpu_torch import main as M
     from image_caption_tpu_torch.ops.attention import fused_attention
@@ -2269,8 +2315,14 @@ def drive_demo(params, cfg, card: str, data_path: str, image: str,
     state = create_train_state(demo_cfg, device=device, seed=0)
     CheckpointManager(os.path.join(out_path, "model")).save(1, state)
     weights = os.path.join(workdir, "weights")
-    P._EXTRACTORS[(weights, device)] = params     # the calibrated weights
+    image_model = cfg.data.image_model
+    key = (weights, device) + (() if image_model == "YOLOv5"
+                               else (image_model,))
+    P._EXTRACTORS[key] = params                   # the calibrated weights
     stem = os.path.splitext(os.path.basename(image))[0]
+    want_launches = {"fused_attention": encoder_launches(cfg.model),
+                     "fused_stage": 4}
+    phase = "demo" if image_model == "YOLOv5" else "frcnn demo"
     launches = {"fused_attention": 0, "fused_stage": 0}
     cwd = os.getcwd()
     os.chdir(workdir)                 # the overlays go under ./demo/
@@ -2281,32 +2333,449 @@ def drive_demo(params, cfg, card: str, data_path: str, image: str,
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                M.main(["--device", device, "--preset", FLAGSHIP, *over,
+                M.main(["--device", device, "--preset", preset, *over,
                         "--data-path", data_path, "--output-path",
                         out_path, "demo", "--image-path", image,
                         "--save-img", "--weights-dir", weights, *extra])
             secs = time.perf_counter() - t0
             got = {"fused_attention": fused_attention.launches,
                    "fused_stage": B.fused_stage.launches}
-            files = sorted(os.listdir(os.path.join("demo", stem, "YOLOv5")))
+            files = sorted(os.listdir(os.path.join("demo", stem,
+                                                   image_model)))
             caption = buf.getvalue().splitlines()[0]
-            print(f"demo {label}: {caption!r} in {secs:.2f} s; launches "
-                  f"{got}, want 3 and 4; overlays {len(files)} files "
-                  f"[{card}]", flush=True)
-            if device != "cpu" and got != {"fused_attention": 3,
-                                           "fused_stage": 4}:
-                raise AssertionError(f"demo {label} launched {got}")
+            print(f"{phase} {label}: {caption!r} in {secs:.2f} s; launches "
+                  f"{got}, want {want_launches}; overlays {len(files)} "
+                  f"files [{card}]", flush=True)
+            if device != "cpu" and got != want_launches:
+                raise AssertionError(f"{phase} {label} launched {got}")
             want = {f"det_{stem}.jpg", f"labels_{stem}.txt"}
             if not want <= set(files) or (label == "greedy" and not any(
                     f.startswith("0_") for f in files)) or not caption:
-                raise AssertionError(f"demo {label}: caption {caption!r}, "
-                                     f"overlays {files}")
+                raise AssertionError(f"{phase} {label}: caption "
+                                     f"{caption!r}, overlays {files}")
             for k in launches:
                 launches[k] += got[k]
     finally:
         os.chdir(cwd)
         P._EXTRACTORS.clear()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 22-26: Faster R-CNN (ResNet-50-FPN) extraction in float32
+# ---------------------------------------------------------------------------
+
+def smoke_frcnn_extractor(seed: int, device):
+    """``init_frcnn_extractor``'s random weights made to behave like trained
+    ones: each ResNet block's last BN scale is 0.2 in both ResNets (as in
+    ``smoke_extractor``), and four heads are scaled by their outputs over
+    one batch of 8 of the smoke's canvases: the RPN's objectness logits to
+    std 1 (as initialised they reach the hundreds and the sigmoid rounds
+    most of them to exactly 1.0, ties the index alone breaks), the box
+    deltas of the RPN to std 0.3 and of the box head to std 1 (deltas of
+    tens clip every box to the canvas), and the classifier's logits to std
+    2 (as initialised every class scores about 1/91, under the 0.05
+    threshold, and nothing is detected)."""
+    import torch
+    from image_caption_tpu_torch.vision import frcnn as FR
+    from image_caption_tpu_torch.vision.pipeline import (
+        _cudnn_f32, init_frcnn_extractor)
+    from image_caption_tpu_torch.vision.resnet import (
+        IMAGENET_MEAN, IMAGENET_STD, resnet_feature_maps)
+    params = init_frcnn_extractor(seed=seed, device=device)
+    for net in (params.frcnn["backbone"], params.resnet):
+        for blocks in net["layers"]:
+            for block in blocks:
+                block["bn3"]["scale"] = block["bn3"]["scale"] * 0.2
+    canvases = torch.from_numpy(letterboxed_canvases(
+        8, 3, FRCNN_CANVAS)[0]).to(device).float()
+    mean = torch.from_numpy(IMAGENET_MEAN).to(device)
+    std = torch.from_numpy(IMAGENET_STD).to(device)
+    p = params.frcnn
+
+    def scale(head, out, target):
+        k = target / float(out.std())
+        head["weight"] = head["weight"] * k
+        head["bias"] = head["bias"] * k
+    with torch.no_grad(), _cudnn_f32():
+        pm = FR.fpn_apply(p["fpn"], resnet_feature_maps(
+            p["backbone"], (canvases / 255.0 - mean) / std))
+        t = [torch.relu(FR._convb(p["rpn"]["conv"], m)) for m in pm]
+        for head, target in (("cls", 1.0), ("bbox", 0.3)):
+            scale(p["rpn"][head], torch.cat(
+                [FR._convb(p["rpn"][head], u).flatten() for u in t]), target)
+        props = FR.rpn_proposals(p["rpn"], pm, FRCNN_CANVAS)
+        logits, deltas = FR.box_head_apply(p["box_head"],
+                                           FR.roi_align(pm, props))
+        scale(p["box_head"]["cls_score"], logits, 2.0)
+        scale(p["box_head"]["bbox_pred"], deltas, 1.0)
+    return params
+
+
+def valid_slots(poss) -> list:
+    """Valid detection slots per image of position rows [B, S, P]."""
+    return (poss[:, 1:, 4:].amax(dim=-1) > 0).sum(dim=1).tolist()
+
+
+def drive_frcnn_extract(params, cfg, card: str, device="cuda"):
+    """``extract_features_frcnn`` at full width (ResNet-50-FPN at 800, 256
+    proposals, 36 detections, ResNet-101 on 37 crops of 224 px an image)
+    in float32, 70 letterboxed canvases in batches of 32, the last ragged:
+    images/s on both ResNet routes (kernel #4's float32 route, cuDNN
+    float32), exactly 4 launches of kernel #4 a batch, the routes'
+    detections equal and features within ``FRCNN_ROUTE_TOL`` x max|ref|,
+    valid slots per image (a run where no image detects anything fails),
+    peak device memory over one batch and that batch under the profiler.
+    Returns the launches of one pass of the kernel route."""
+    import torch
+    from image_caption_tpu_torch.vision import bottleneck as B
+    from image_caption_tpu_torch.vision.pipeline import extract_features_frcnn
+    m = cfg.model
+    batches = padded_batches(*letterboxed_canvases(EXTRACT_IMAGES, 17,
+                                                   FRCNN_CANVAS),
+                             EXTRACT_BATCH)
+
+    def run_pass(use_kernel):
+        outs = []
+        for parts, real in batches:
+            f, p, bx = extract_features_frcnn(
+                params, *parts, num_objects=m.num_objects,
+                use_kernel=use_kernel, device=device)
+            outs.append((f[:real], p[:real], bx[:real]))
+        synchronize(device)
+        return [torch.cat(t) for t in zip(*outs)]
+
+    for use_kernel in (True, False):           # set-up, not counted
+        run_pass(use_kernel)
+    B.fused_stage.launches = B.fused_bottleneck.launches = 0
+    results = {True: run_pass(True)}
+    launches = {"fused_stage": B.fused_stage.launches,
+                "fused_bottleneck": B.fused_bottleneck.launches}
+    results[False] = run_pass(False)
+    print(f"frcnn extract: launches over {len(batches)} batches {launches}, "
+          f"want fused_stage 4 per batch and fused_bottleneck 0", flush=True)
+    if device != "cpu" and launches != {"fused_stage": 4 * len(batches),
+                                        "fused_bottleneck": 0}:
+        raise AssertionError(f"frcnn extract launched {launches}")
+    seconds = {True: [], False: []}
+    for use_kernel in (True, False, False, True):
+        t0 = time.perf_counter()
+        run_pass(use_kernel)
+        seconds[use_kernel].append(time.perf_counter() - t0)
+    rates = {}
+    for use_kernel, label in ((True, "kernel #4 f32"), (False, "cuDNN f32")):
+        s = statistics.median(seconds[use_kernel])
+        rates[label] = EXTRACT_IMAGES / s
+        print(f"frcnn extract {label} route: {EXTRACT_IMAGES} images in "
+              f"{s:.4f} s (median of 2: "
+              f"{', '.join(f'{x:.4f}' for x in seconds[use_kernel])}), "
+              f"{rates[label]:.2f} images/s at batch {EXTRACT_BATCH}, "
+              f"float32 [{card}]", flush=True)
+
+    (fk, pk, bk), (fp, pp, bp) = results[True], results[False]
+    slots = valid_slots(pk)
+    same_det = torch.equal(pk, pp) and torch.equal(bk, bp)
+    err = (fk - fp).abs().max().item()
+    ref = fp.abs().max().item()
+    print(f"frcnn extract: features {tuple(fk.shape)}, positions "
+          f"{tuple(pk.shape)}; valid slots per image (of {m.num_objects}) "
+          f"{slots}; kernel route vs cuDNN route max_abs_err {err:.3e} "
+          f"(max|ref| {ref:.3e}, tol {FRCNN_ROUTE_TOL:g} x max|ref|); "
+          f"detections and positions equal: {same_det}", flush=True)
+    if not any(slots):
+        raise AssertionError("frcnn extract: no image detected anything")
+    if not (same_det and err <= FRCNN_ROUTE_TOL * ref
+            and bool(torch.isfinite(fk).all())):
+        raise AssertionError("frcnn extract: the two ResNet routes disagree")
+    if device != "cpu":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        extract_features_frcnn(params, *batches[0][0],
+                               num_objects=m.num_objects)
+        synchronize(device)
+        print(f"frcnn extract: peak device memory over one batch of "
+              f"{EXTRACT_BATCH}: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB allocated [{card}]", flush=True)
+        profile_extract(lambda: extract_features_frcnn(
+            params, *batches[0][0], num_objects=m.num_objects), card,
+            "frcnn extract")
+    return launches
+
+
+def level_cut_gaps(p_rpn, pmaps, k: int = 200):
+    """Per image, the smallest gap over the levels between the k-th and the
+    (k+1)-th objectness logit: how close the per-level top-k came to
+    taking another anchor."""
+    import torch
+    from image_caption_tpu_torch.vision import frcnn as FR
+    gaps = []
+    for fm in pmaps:
+        t = torch.relu(FR._convb(p_rpn["conv"], fm))
+        lg = FR._convb(p_rpn["cls"], t).reshape(fm.shape[0], -1)
+        if lg.shape[1] > k:
+            s = torch.sort(lg, dim=1, descending=True).values
+            gaps.append(s[:, k - 1] - s[:, k])
+    return torch.stack(gaps).amin(dim=0).tolist()
+
+
+def check_frcnn_against_cpu(params, cfg, card: str, device="cuda"):
+    """Two images at full width in float32: the card (kernel route) against
+    the CPU (plain route), the same weights.  Per image the detector's
+    stages are compared as a pick sequence: the proposals, which may differ
+    first at an RPN pick whose CPU margin (``pick_margins``, IoU 0.7) or
+    per-level top-k gap is below 1e-4, then the detections, which may
+    differ first at a pick whose CPU margin is below 1e-4.  Where both
+    agree, features within 1e-3 x max|ref| and positions within 1e-5;
+    otherwise slot 0 (the whole image) only."""
+    import torch
+    from image_caption_tpu_torch.vision import frcnn as FR
+    from image_caption_tpu_torch.vision.nms import Detections, nms_fixed
+    from image_caption_tpu_torch.vision.pipeline import (
+        _cudnn_f32, extract_features_frcnn)
+    from image_caption_tpu_torch.vision.resnet import (
+        IMAGENET_MEAN, IMAGENET_STD, resnet_feature_maps)
+    m = cfg.model
+    c, mt, sz = letterboxed_canvases(2, 7, FRCNN_CANVAS)
+    cpu_params = params.to("cpu")
+    fg, pg, _ = (t.cpu() for t in extract_features_frcnn(
+        params, c, mt, sz, num_objects=m.num_objects, device=device))
+    fc, pc, _ = extract_features_frcnn(cpu_params, c, mt, sz,
+                                       num_objects=m.num_objects,
+                                       use_kernel=False, device="cpu")
+    st = {}
+    for dev, p in ((device, params.frcnn), ("cpu", cpu_params.frcnn)):
+        mean = torch.from_numpy(IMAGENET_MEAN).to(dev)
+        std = torch.from_numpy(IMAGENET_STD).to(dev)
+        x = (torch.from_numpy(c).to(dev).float() / 255.0 - mean) / std
+        with torch.no_grad(), _cudnn_f32():
+            pm = FR.fpn_apply(p["fpn"], resnet_feature_maps(p["backbone"], x))
+            props = FR.rpn_proposals(p["rpn"], pm, FRCNN_CANVAS)
+            cand = FR.detection_candidates(p, pm, props, FRCNN_CANVAS)
+            det = nms_fixed(*cand, iou_thres=0.5, conf_thres=0.05,
+                            max_det=m.num_objects, pre_nms=1024)
+            st[dev] = {"props": props.cpu(), "cand": [t.cpu() for t in cand],
+                       "det": [t.cpu() for t in det]}
+            if dev == "cpu":
+                st[dev]["rpn"] = FR.rpn_candidates(p["rpn"], pm, FRCNN_CANVAS)
+                st[dev]["gaps"] = level_cut_gaps(p["rpn"], pm)
+    agree = []
+    for i in range(2):
+        rb, rs = (t[i] for t in st["cpu"]["rpn"])
+        gp, cp = st[device]["props"][i], st["cpu"]["props"][i]
+        differ = ((gp - cp).abs().amax(dim=1) > 1e-2).nonzero().flatten()
+        if len(differ):
+            j = int(differ[0])
+            margins = pick_margins(rb, rs, torch.zeros_like(
+                rs, dtype=torch.int32), len(cp), iou_thres=0.7,
+                conf_thres=0.0, pre_nms=len(rs))
+            gap = st["cpu"]["gaps"][i]
+            print(f"frcnn check: image {i}: proposals differ from pick {j},"
+                  f" CPU margin there {margins[j]:.3e}, smallest level "
+                  f"top-k gap {gap:.3e}", flush=True)
+            if not min(margins[j], gap) < 1e-4:
+                raise AssertionError(f"frcnn check: proposals differ at "
+                                     f"image {i}, pick {j}")
+            agree.append(False)
+            continue
+        cb, cs, cl = (t[i] for t in st["cpu"]["cand"])
+        margins = pick_margins(cb, cs, cl, m.num_objects, iou_thres=0.5,
+                               conf_thres=0.05, pre_nms=1024)
+        got = Detections(*(t[i] for t in st[device]["det"]))
+        want = Detections(*(t[i] for t in st["cpu"]["det"]))
+        n_valid = int(want.valid.sum())
+        j = first_difference(got, want)
+        agree.append(j is None)
+        if j is None:
+            print(f"frcnn check: image {i}: {len(cp)} proposals and "
+                  f"{n_valid} detections equal; smallest CPU margin over "
+                  f"the runner-up {min(margins[:max(n_valid, 1)]):.3e}",
+                  flush=True)
+            continue
+        print(f"frcnn check: image {i} differs from detection {j}, CPU "
+              f"score margin over the runner-up there {margins[j]:.3e}",
+              flush=True)
+        if not margins[j] < 1e-4:
+            raise AssertionError(f"frcnn check: detections differ at image "
+                                 f"{i}, pick {j}, where the CPU's margin is "
+                                 f"{margins[j]:.3e}")
+    slots = [slice(None) if ok else slice(0, 1) for ok in agree]
+    err = max((fg[i, s] - fc[i, s]).abs().max().item()
+              for i, s in enumerate(slots))
+    ref = max(fc[i, s].abs().max().item() for i, s in enumerate(slots))
+    perr = max((pg[i, s] - pc[i, s]).abs().max().item()
+               for i, s in enumerate(slots))
+    print(f"frcnn check: features {tuple(fc.shape)} float32, card kernel "
+          f"route vs CPU plain route max_abs_err {err:.3e} (max|ref| "
+          f"{ref:.3e}, tol 1e-3 x max|ref|), positions max_abs_err "
+          f"{perr:.3e} (tol 1e-5); images compared in full: {agree} "
+          f"[{card}]", flush=True)
+    if not (err <= 1e-3 * ref and perr <= 1e-5):
+        raise AssertionError(f"frcnn check: card and CPU differ: features "
+                             f"{err:.3e}, positions {perr:.3e}")
+
+
+def drive_frcnn_caption(params, cfg, card: str, device="cuda"):
+    """``caption_images`` on 70 JPEGs with the FRCNN preset's captioner at
+    full width (random weights, seed 0), greedy and beam 3, batch 32: the
+    launches of kernels #1 (the encoder's, a batch) and #4 (4 a batch) and
+    images/s end to end.  Returns the launches of both runs."""
+    import torch
+    from image_caption_tpu_torch.models.captioner import Captioner
+    from image_caption_tpu_torch.ops.attention import fused_attention
+    from image_caption_tpu_torch.serve import caption_images
+    from image_caption_tpu_torch.vision import bottleneck as B
+    m = cfg.model
+    model = Captioner(m, device=device,
+                      generator=torch.Generator().manual_seed(0))
+    idx_to_word = vocabulary(m.num_vocab)
+    n_batches = -(-EXTRACT_IMAGES // EXTRACT_BATCH)
+    want = {"fused_attention": encoder_launches(m) * n_batches,
+            "fused_stage": 4 * n_batches}
+    launches = {"fused_attention": 0, "fused_stage": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_jpegs(tmp, EXTRACT_IMAGES, 19)
+        for label, beam in (("greedy", None), ("beam3", 3)):
+            fused_attention.launches = B.fused_stage.launches = 0
+            t0 = time.perf_counter()
+            caps = caption_images(cfg, paths, model, idx_to_word,
+                                  extractor_params=params, beam_size=beam,
+                                  batch_size=EXTRACT_BATCH, device=device)
+            s = time.perf_counter() - t0
+            got = {"fused_attention": fused_attention.launches,
+                   "fused_stage": B.fused_stage.launches}
+            for k in launches:
+                launches[k] += got[k]
+            print(f"frcnn caption {label}: {EXTRACT_IMAGES} JPEGs in "
+                  f"{s:.4f} s, {EXTRACT_IMAGES / s:.2f} images/s end to end "
+                  f"at batch {EXTRACT_BATCH}; launches {got}, want {want}; "
+                  f"first caption {caps[0]!r} [{card}]", flush=True)
+            if device != "cpu" and got != want:
+                raise AssertionError(f"frcnn caption {label} launched {got}")
+            if len(caps) != EXTRACT_IMAGES or not all(
+                    isinstance(c, str) for c in caps):
+                raise AssertionError(f"frcnn caption {label}: an image got "
+                                     f"no caption")
+    return launches
+
+
+def drive_frcnn_features(params, cfg, card: str, workdir: str,
+                         device: str = "cuda"):
+    """The ``features`` verb with the FRCNN preset on phase 19's COCO tree
+    (under ``workdir``) into its own data path, every split, batch 32,
+    float32: images/s end to end, 4 launches of kernel #4 a batch, the
+    artifacts [N, 37, 2048] and [N, 37, 95], then a rerun that skips every
+    split on its fingerprint and launches nothing.  Returns (data path,
+    launches of the first run)."""
+    import importlib.util
+    from image_caption_tpu_torch.utils.io import load_pickle
+    m = cfg.model
+    coco_root = os.path.join(workdir, "coco")
+    data_path = os.path.join(workdir, "frcnn_data")
+    fmt = "hkl" if importlib.util.find_spec("h5py") else "npy"
+    n_val = COCO_IMAGES["val"] // 2
+    n_batches = (-(-COCO_IMAGES["train"] // EXTRACT_BATCH)
+                 + -(-n_val // EXTRACT_BATCH)
+                 + -(-(COCO_IMAGES["val"] - n_val) // EXTRACT_BATCH))
+    _, secs, stage, block = run_features_verb(
+        params, data_path, coco_root, fmt, device=device,
+        preset=FRCNN_PRESET)
+    n = sum(COCO_IMAGES.values())
+    launches = {"fused_stage": stage, "fused_bottleneck": block}
+    print(f"frcnn features: {n} JPEGs over three splits in {secs:.4f} s, "
+          f"{n / secs:.2f} images/s end to end at batch {EXTRACT_BATCH}, "
+          f"float32; launches {launches}, want fused_stage 4 per batch over "
+          f"{n_batches} batches [{card}]", flush=True)
+    if device != "cpu" and launches != {"fused_stage": 4 * n_batches,
+                                        "fused_bottleneck": 0}:
+        raise AssertionError(f"frcnn features launched {launches}")
+    for split in ("train", "valid", "test"):
+        rows = len(load_pickle(os.path.join(data_path, split,
+                                            f"{split}.file.names.pkl")))
+        shapes = [feature_file(data_path, split, kind, fmt).shape
+                  for kind in ("features", "positions")]
+        print(f"frcnn features {split}: {rows} images, features "
+              f"{shapes[0]}, positions {shapes[1]}", flush=True)
+        if shapes != [(rows, m.num_slots, 2048), (rows, m.num_slots, 95)]:
+            raise AssertionError(f"frcnn features {split}: shapes {shapes}")
+    out, _, stage, block = run_features_verb(
+        params, data_path, coco_root, fmt, device=device,
+        preset=FRCNN_PRESET)
+    skips = out.count("fingerprint matches — skipping")
+    print(f"frcnn features rerun: {skips} splits skipped on their "
+          f"fingerprint, launches {stage} + {block}, want 3 and 0",
+          flush=True)
+    if skips != 3 or stage or block:
+        raise AssertionError("a rerun of frcnn features extracted again")
+    return data_path, launches
+
+
+def check_stage_f32_frcnn(card: str):
+    """Kernel #4's float32 route at the FRCNN batch's N = 32 x 37 = 1184
+    crops, each ResNet-101 identity run: against ``stage_reference``
+    (1e-4 x max|ref|), then its device time beside its bound, the plain
+    version and the cuDNN float32 sequence (CUDA-graph replay, one call a
+    graph, 1 warm-up and 3 timed replays).  Returns (the largest error,
+    rows keyed ``<run>_float32_n1184``)."""
+    import torch
+    from image_caption_tpu_torch.vision import bottleneck as B
+    from image_caption_tpu_torch.vision.resnet import _bottleneck
+    worst, rows = 0.0, {}
+    timing = dict(warmup=1, reps=3)
+    for k, run in enumerate(RESNET101_RUNS):
+        ws = bottleneck_weights(run, 100 + k, "cuda")
+        x = bottleneck_input(run, FRCNN_CROPS, 400 + k, "cuda", torch.float32)
+        got, want = B.fused_stage(x, *ws), B.stage_reference(x, *ws)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ref = want.abs().max().item()
+        worst = max(worst, err)
+        print(f"kernel check bottleneck fused_stage {run[0]} N={FRCNN_CROPS} "
+              f"blocks={run[4]} float32: max_abs_err {err:.3e} (max|ref| "
+              f"{ref:.3e}, rel {err / ref:.3e}, tol 1e-4 x max|ref|)",
+              flush=True)
+        if not (err <= BOTTLENECK_TOL["float32"] * ref
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"fused_stage disagrees at {run[0]} "
+                                 f"N={FRCNN_CROPS} float32")
+        del got, want
+        blocks = [{"conv1": ws[0][i][:, :, None, None],
+                   "bn1": {"scale": ws[1][i, 0], "bias": ws[1][i, 1]},
+                   "conv2": ws[2][i],
+                   "bn2": {"scale": ws[3][i, 0], "bias": ws[3][i, 1]},
+                   "conv3": ws[4][i][:, :, None, None],
+                   "bn3": {"scale": ws[5][i, 0], "bias": ws[5][i, 1]}}
+                  for i in range(run[4])]
+
+        def cudnn():
+            y = x
+            for blk in blocks:
+                y = _bottleneck(blk, y, 1)
+            return y
+        row = {"shape": [FRCNN_CROPS, run[2], run[1], run[1], run[3],
+                         run[4]],
+               "dtype": "float32",
+               "ms": device_ms(lambda: B.fused_stage(x, *ws), per_graph=1,
+                               **timing),
+               "call_ms": None,
+               "plain_ms": device_ms(lambda: B.stage_reference(x, *ws),
+                                     per_graph=1, **timing),
+               "cudnn_ms": device_ms(cudnn, per_graph=1, **timing),
+               "library_ms": None}
+        (row["bound_ms"], row["bound_by"], row["bytes"],
+         row["flops"]) = bottleneck_bound(run, FRCNN_CROPS, run[4], 4)
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row["x_bound"] = row["ms"] / row["bound_ms"]
+        rows[f"{run[0]}_float32_n{FRCNN_CROPS}"] = row
+        print(f"time fused_stage {run[0]} (N, C, H, W, Wd, blocks)="
+              f"{tuple(row['shape'])} float32: kernel {row['ms']:.4f} ms on "
+              f"the device, {row['tflops']:.1f} TFLOP/s, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['x_bound']:.2f}x the bound, plain {row['plain_ms']:.4f} "
+              f"ms, cuDNN {row['cudnn_ms']:.4f} ms, kernel/cuDNN "
+              f"{row['ms'] / row['cudnn_ms']:.2f}x [{card}]", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return worst, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2346,6 +2815,9 @@ def main() -> int:
     times = time_kernel(card)
     times_bwd = time_kernel_bwd(card)
     times_bneck = time_bottleneck(card)
+    err_f32, rows_f32 = check_stage_f32_frcnn(card)
+    max_err_bneck["fused_stage"] = max(max_err_bneck["fused_stage"], err_f32)
+    times_bneck["fused_stage"].update(rows_f32)
 
     from image_caption_tpu_torch.ops.attention import (fused_attention,
                                                        fused_attention_bwd)
@@ -2385,6 +2857,23 @@ def main() -> int:
         demo_launches = drive_demo(extractor, flagship, card, data_path,
                                    train_jpegs[0], tmp)
 
+        t0 = time.perf_counter()
+        frcnn_cfg = get_preset(FRCNN_PRESET)
+        frcnn = smoke_frcnn_extractor(0, "cuda")
+        print(f"frcnn extractor: ResNet-50-FPN + ResNet-101, random weights "
+              f"from seed 0 with heads calibrated on one batch, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        frcnn_extract = drive_frcnn_extract(frcnn, frcnn_cfg, card)
+        check_frcnn_against_cpu(frcnn, frcnn_cfg, card)
+        frcnn_caption = drive_frcnn_caption(frcnn, frcnn_cfg, card)
+        frcnn_data, frcnn_features = drive_frcnn_features(frcnn, frcnn_cfg,
+                                                          card, tmp)
+        os.makedirs(os.path.join(tmp, "frcnn_demo"))
+        frcnn_demo = drive_demo(frcnn, frcnn_cfg, card, frcnn_data,
+                                train_jpegs[0],
+                                os.path.join(tmp, "frcnn_demo"),
+                                preset=FRCNN_PRESET)
+
     def entry(name, source, replaces, by_path, err, rows, main_shape):
         row = rows[main_shape]
         return {"name": name, "route": "cuda", "source": source,
@@ -2405,14 +2894,20 @@ def main() -> int:
                "scst": scst_launches["fused_attention"], "extract": 0,
                "caption": caption_launches["fused_attention"],
                "features": 0, "roi": 0,
-               "demo": demo_launches["fused_attention"]},
+               "demo": demo_launches["fused_attention"],
+               "frcnn_extract": 0,
+               "frcnn_caption": frcnn_caption["fused_attention"],
+               "frcnn_features": 0,
+               "frcnn_demo": frcnn_demo["fused_attention"]},
               max_err, times, "a_encoder"),
         entry("fused_attention_bwd",
               "image_caption_tpu_torch/csrc/fused_attention_bwd.cu",
               "image_caption_tpu/ops/attention.py:125",
               {"serve": 0, "train": train_launches["fused_attention_bwd"],
                "scst": scst_launches["fused_attention_bwd"], "extract": 0,
-               "caption": 0, "features": 0, "roi": 0, "demo": 0},
+               "caption": 0, "features": 0, "roi": 0, "demo": 0,
+               "frcnn_extract": 0, "frcnn_caption": 0, "frcnn_features": 0,
+               "frcnn_demo": 0},
               max_err_bwd, times_bwd, "a_encoder"),
         entry("fused_bottleneck", bneck_src,
               "image_caption_tpu/vision/pallas_bottleneck.py:43",
@@ -2421,7 +2916,11 @@ def main() -> int:
                "extract": extract_launches["fused_bottleneck"],
                "caption": 0,
                "features": features_launches["fused_bottleneck"],
-               "roi": 0, "demo": 0},
+               "roi": 0, "demo": 0,
+               "frcnn_extract": frcnn_extract["fused_bottleneck"],
+               "frcnn_caption": 0,
+               "frcnn_features": frcnn_features["fused_bottleneck"],
+               "frcnn_demo": 0},
               max_err_bneck["fused_bottleneck"],
               times_bneck["fused_bottleneck"], "stage3_bfloat16"),
         entry("fused_stage", bneck_src,
@@ -2430,7 +2929,11 @@ def main() -> int:
                "extract": extract_launches["fused_stage"],
                "caption": caption_launches["fused_stage"],
                "features": features_launches["fused_stage"],
-               "roi": roi_launches, "demo": demo_launches["fused_stage"]},
+               "roi": roi_launches, "demo": demo_launches["fused_stage"],
+               "frcnn_extract": frcnn_extract["fused_stage"],
+               "frcnn_caption": frcnn_caption["fused_stage"],
+               "frcnn_features": frcnn_features["fused_stage"],
+               "frcnn_demo": frcnn_demo["fused_stage"]},
               max_err_bneck["fused_stage"], times_bneck["fused_stage"],
               "stage3_bfloat16"),
     ]

@@ -109,8 +109,10 @@ def cmd_evaluation(args) -> None:
 def cmd_demo(args) -> None:
     """main.py:193-247: one image -> its caption, with ``--save-img`` the
     detections and, for a greedy decode, one attention overlay per word
-    under ``./demo/<stem>/<image_model>``.  The extraction runs kernel #4
-    and the decode's encoder kernel #1."""
+    under ``./demo/<stem>/<image_model>``; a detection's class there is the
+    argmax of its position row's one-hot (YOLOv5's 80 classes, or Faster
+    R-CNN's 91 less the background).  The extraction runs kernel #4 and
+    the decode's encoder kernel #1."""
     import numpy as np
     import torch
     from .data.vocab import decode_captions, invert_vocab
@@ -267,7 +269,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "under ./demo/<image stem>/<image_model>")
     dm.add_argument("--max-obj", type=int, default=None)
     dm.add_argument("--weights-dir", default="./weights",
-                    help="yolov5x and resnet101 weights; random when absent")
+                    help="yolov5x (or fasterrcnn_resnet50_fpn) and "
+                         "resnet101 weights; random when absent")
     dm.set_defaults(fn=cmd_demo)
 
     c = sub.add_parser("caption")
@@ -285,7 +288,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="defaults to data.max_obj, the layout the training "
                         "features were written with")
     c.add_argument("--weights-dir", default="./weights",
-                   help="yolov5x and resnet101 weights; random when absent")
+                   help="yolov5x (or fasterrcnn_resnet50_fpn) and "
+                        "resnet101 weights; random when absent")
     c.add_argument("--out", default=None,
                    help="write JSONL here instead of stdout")
     c.add_argument("--skip-errors", action="store_true",
@@ -302,7 +306,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=["train", "valid", "test"])
     f.add_argument("--batch-size", type=int, default=64)
     f.add_argument("--weights-dir", default="./weights",
-                   help="yolov5x and resnet101 weights; random when absent")
+                   help="yolov5x (or fasterrcnn_resnet50_fpn) and "
+                        "resnet101 weights; random when absent")
     f.add_argument("--format", choices=("hkl", "npy"), default="hkl",
                    help="feature files as hickle (needs h5py) or .npy")
     f.set_defaults(fn=cmd_features)

@@ -7,7 +7,8 @@
     decode and ``decode_captions``.
   * ``caption_images``: the counterpart of the JAX package's
     ``serve.py:caption_images`` on one GPU: image files stream through the
-    host decode pool and the extraction (``vision/etl.py``: YOLOv5x, crops,
+    host decode pool and the extraction (``vision/etl.py``: YOLOv5x, or
+    Faster R-CNN with ``data.image_model="FasterRCNN"``, then crops and
     ResNet-101 with the fused bottleneck kernel) straight into the same
     decode, without touching disk.
 """
@@ -87,9 +88,10 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
     ``beam_size`` None or 1 decodes greedily, above that beam search with
     the score mode of ``cfg.caption_model``.  ``use_kernel`` sends both the
     extraction (kernel #4) and the encoder (kernel #1) through the CUDA
-    kernels on the card.  ``compute_dtype`` is the extraction's (bfloat16,
-    as in the JAX package).  ``skip_errors=True``: an unreadable image gets
-    ``None`` instead of failing the run.  ``on_batch(start, captions)``
+    kernels on the card.  ``compute_dtype`` is YOLOv5's extraction's
+    (bfloat16, as in the JAX package); Faster R-CNN's runs in float32.
+    ``skip_errors=True``: an unreadable image gets ``None`` instead of
+    failing the run.  ``on_batch(start, captions)``
     streams each batch out; ``progress(done, n)`` reports.  Runs on CUDA
     unless ``device`` says otherwise; the model must lie there."""
     from .vision.etl import stream_extracted_batches
@@ -106,7 +108,7 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
         skip_errors=skip_errors, use_kernel=use_kernel,
         compute_dtype=compute_dtype, device=device)
     for start, real, failed, feats, poss in stream:
-        # the captioner reads its own position width (84 for YOLOv5)
+        # the captioner reads its own position width (84 YOLOv5, 95 FRCNN)
         tokens = _decode(model, cfg, feats.float(),
                          poss[:, :, :m.dim_positions].float(), beam_size,
                          use_kernel, device)

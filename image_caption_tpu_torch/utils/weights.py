@@ -130,3 +130,34 @@ def yolov5_state_from_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """The JAX package's YOLOv5 params -> the port's YOLOv5 params
     (``vision/yolov5.py``), detect biases and anchors included."""
     return _extractor_tree(params)
+
+
+def frcnn_state_from_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's Faster R-CNN params (``init_frcnn``'s tree) -> the
+    port's (``vision/frcnn.py``): conv kernels HWIO -> OIHW and linear
+    kernels [in, out] -> [out, in], under ``weight``.  The JAX package
+    flattens an ROI as (7, 7, C) and permutes fc6's rows to match; the
+    port flattens it as torchvision does, (C, 7, 7), so that permutation
+    is undone here."""
+    def convb(p):
+        return {"weight": _extractor_tree(p["kernel"]), "bias": _t(p["bias"])}
+
+    def linear(p):
+        k = np.asarray(p["kernel"], dtype=np.float32)
+        return {"weight": _t(np.ascontiguousarray(k.T)), "bias": _t(p["bias"])}
+
+    head = params["box_head"]
+    fc6 = np.asarray(head["fc6"]["kernel"], dtype=np.float32)
+    c = np.asarray(params["fpn"]["layer"][0]["kernel"]).shape[-1]
+    side = int(round(np.sqrt(fc6.shape[0] // c)))
+    fc6 = fc6.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(
+        c * side * side, -1)
+    return {
+        "backbone": resnet_state_from_jax_params(params["backbone"]),
+        "fpn": {kind: [convb(p) for p in params["fpn"][kind]]
+                for kind in ("inner", "layer")},
+        "rpn": {k: convb(params["rpn"][k]) for k in ("conv", "cls", "bbox")},
+        "box_head": {"fc6": linear({"kernel": fc6, "bias": head["fc6"]["bias"]}),
+                     **{k: linear(head[k])
+                        for k in ("fc7", "cls_score", "bbox_pred")}},
+    }

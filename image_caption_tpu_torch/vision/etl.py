@@ -28,7 +28,7 @@ import hashlib
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,11 +39,13 @@ from ..data.vocab import build_caption_vector, build_vocab
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.io import load_pickle, open_hkl, save_array, save_pickle
 from .loader import load_letterboxed_batch
-from .pipeline import (ExtractorParams, extract_features_batch,
+from .pipeline import (FRCNN_CANVAS, ExtractorParams, FrcnnExtractorParams,
+                       extract_features_batch, extract_features_frcnn,
                        extract_features_roi, load_extractor,
-                       validate_feature_mode)
+                       load_frcnn_extractor, validate_feature_mode)
 
 CANVAS = 640
+AnyExtractor = Union[ExtractorParams, FrcnnExtractorParams]
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +110,7 @@ def build_references(records: Sequence[Dict]) -> Dict[int, List[str]]:
 
 def stream_extracted_batches(
         image_paths: Sequence[str], *,
-        extractor_params: Optional[ExtractorParams] = None,
+        extractor_params: Optional[AnyExtractor] = None,
         weights_dir: Optional[str] = None, num_objects: int = 36,
         max_obj: Optional[int] = None, batch_size: int = 128,
         num_workers: int = 8, image_model: str = "YOLOv5",
@@ -121,18 +123,27 @@ def stream_extracted_batches(
     chunk of ``image_paths``: ``real`` rows of the padded batch are images,
     ``failed`` lists the batch-relative rows that could not be read (only
     with ``skip_errors``; they hold a gray canvas), and ``feats``
-    [B, S, 2048] / ``poss`` [B, S, 84] stay on ``device`` (the card unless
-    told otherwise) without a wait.  ``feature_mode`` "crop" encodes every
-    box (ResNet through kernel #4 with ``use_kernel``), "roi" pools a
-    shared trunk at ``roi_trunk_size`` and detects at ``roi_detect_size``.
-    Extractor weights load from ``weights_dir`` (random when absent)
-    unless ``extractor_params`` are given."""
+    [B, S, 2048] / ``poss`` [B, S, 84] (95 for Faster R-CNN) stay on
+    ``device`` (the card unless told otherwise) without a wait.
+    ``feature_mode`` "crop" encodes every box (ResNet through kernel #4
+    with ``use_kernel``), "roi" pools a shared trunk at ``roi_trunk_size``
+    and detects at ``roi_detect_size``.  ``image_model="FasterRCNN"``
+    loads square 800-px canvases (``rect_letterbox`` does not apply) and
+    extracts with ``extract_features_frcnn`` in float32 (``max_obj`` and
+    ``compute_dtype`` do not apply), as the JAX package does.  Extractor
+    weights load from ``weights_dir`` (random when absent) unless
+    ``extractor_params`` (``FrcnnExtractorParams`` for Faster R-CNN) are
+    given."""
     validate_feature_mode(feature_mode, image_model,
                           roi_trunk_size=roi_trunk_size,
                           roi_detect_size=roi_detect_size)
     device = resolve_device(device)
+    frcnn = image_model == "FasterRCNN"
+    canvas_size = FRCNN_CANVAS if frcnn else CANVAS
+    rect = rect_letterbox and not frcnn
     if extractor_params is None:
-        extractor_params = load_extractor(weights_dir, device=device)
+        extractor_params = (load_frcnn_extractor if frcnn else
+                            load_extractor)(weights_dir, device=device)
 
     # two pools: decodes fan out on io_pool while batch_pool's one thread
     # runs load_batch itself (one pool would deadlock at num_workers=1)
@@ -144,12 +155,12 @@ def stream_extracted_batches(
         failed: List[int] = []
         if skip_errors:
             canvases, metas, sizes, ok = load_letterboxed_batch(
-                paths, CANVAS, rect=rect_letterbox, nthreads=num_workers,
+                paths, canvas_size, rect=rect, nthreads=num_workers,
                 io_pool=io_pool, return_ok=True)
             failed = np.nonzero(~ok)[0].tolist()
         else:
             canvases, metas, sizes = load_letterboxed_batch(
-                paths, CANVAS, rect=rect_letterbox, nthreads=num_workers,
+                paths, canvas_size, rect=rect, nthreads=num_workers,
                 io_pool=io_pool)
         real = len(paths)
         if real < batch_size:                    # pad to the static shape
@@ -161,6 +172,11 @@ def stream_extracted_batches(
         return canvases, metas, sizes, real, failed
 
     def extract(canvases, metas, sizes):
+        if frcnn:
+            return extract_features_frcnn(
+                extractor_params, canvases, metas, sizes,
+                num_objects=num_objects, canvas=canvas_size,
+                use_kernel=use_kernel, device=device)
         kw = dict(num_objects=num_objects, max_obj=max_obj,
                   compute_dtype=compute_dtype, device=device)
         if feature_mode == "roi":
@@ -404,16 +420,18 @@ def _feature_shape(path: str) -> Tuple[int, ...]:
 def run_etl(cfg: Config, *, coco_root: str,
             splits: Sequence[str] = ("train", "valid", "test"),
             batch_size: int = 128, weights_dir: Optional[str] = None,
-            extractor_params: Optional[ExtractorParams] = None,
+            extractor_params: Optional[AnyExtractor] = None,
             feature_format: str = "hkl",
             device: DeviceLike = None) -> None:
     """features.py:16-119 against a standard COCO tree:
     ``{coco_root}/annotations/captions_{train,val}2017.json`` and
     ``{coco_root}/image/{train,val}2017/``, into ``cfg.data.data_path``.
 
-    Extraction runs on ``device`` (the card unless told otherwise) in
-    bf16, crop mode through kernel #4, with ``extractor_params`` or the
-    weights of ``weights_dir`` (random when absent).  The feature arrays
+    Extraction runs on ``device`` (the card unless told otherwise) with
+    ResNet-101's identity runs through kernel #4: YOLOv5 in bf16 (crop or
+    roi mode), Faster R-CNN in float32 (``data.image_model``), with
+    ``extractor_params`` or the weights of ``weights_dir`` (random when
+    absent).  The feature arrays
     are ``{split}.features.{feature_format}`` and
     ``{split}.positions.{feature_format}``: hickle (``hkl``, needs
     ``h5py``) as the reference writes, or ``npy``; the dataset loader
@@ -475,8 +493,9 @@ def run_etl(cfg: Config, *, coco_root: str,
         records_by_split["test"] = test_records
 
     word_index = None
-    extractor = extractor_params if extractor_params is not None else \
-        load_extractor(weights_dir, device=device)
+    extractor = extractor_params if extractor_params is not None else (
+        load_frcnn_extractor if d.image_model == "FasterRCNN" else
+        load_extractor)(weights_dir, device=device)
 
     for split in splits:
         records = records_by_split[split]

@@ -18,14 +18,20 @@ Position rows are [x1/W, y1/H, x2/W, y2/H] + the score one-hot at the class
 index; the whole-image row is [0, 0, 1, 1] + zeros; with ``max_obj`` only
 the whole-image row and the largest detection's row survive.
 
+``extract_features_frcnn`` is the Faster R-CNN pipeline
+(``data.image_model="FasterRCNN"``): ResNet-50-FPN detection on an
+800-px canvas (``vision/frcnn.py``), then the same crops and ResNet-101
+in float32, with the reference's rows for that model:
+[y1/H, y2/H, x1/W, x2/W] + the 91-wide score one-hot, no halving.
+
 Everything runs on one device, the card unless ``device`` says otherwise;
-the parameters must lie there.  ``use_kernel=True`` sends ResNet's
-identity runs through the fused bottleneck kernel (kernel #4).  The
-Faster R-CNN extractor is not ported yet.
+the parameters must lie there.  ``use_kernel=True`` sends ResNet-101's
+identity runs through the fused bottleneck kernel (kernel #4).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -35,6 +41,9 @@ import torch
 from ..models.decoding import topk_lowest_index
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tree import tree_map
+from .frcnn import NUM_CLASSES as FRCNN_CLASSES
+from .frcnn import frcnn_detect, init_frcnn
+from .frcnn import load_checkpoint as load_frcnn_checkpoint
 from .nms import Detections
 from .ops import crop_and_resize, letterbox_image, resize, unletterbox_boxes
 from .resnet import (IMAGENET_MEAN, IMAGENET_STD, init_resnet,
@@ -43,7 +52,8 @@ from .resnet import (IMAGENET_MEAN, IMAGENET_STD, init_resnet,
 from .yolov5 import init_yolov5, load_checkpoint, stem_is_focus, yolov5_detect
 
 FEATURE_MODES = ("crop", "roi")
-_LATER = "it comes with a later slice of the port (ROADMAP)"
+# the Faster R-CNN path's square letterbox canvas
+FRCNN_CANVAS = 800
 
 
 class ExtractorParams(NamedTuple):
@@ -68,6 +78,12 @@ def init_extractor(seed: int = 0, *,
                            resnet=init_resnet(gen)).to(device)
 
 
+def _find(weights_dir: str, *names: str) -> Optional[str]:
+    """The first of ``names`` that exists under ``weights_dir``."""
+    return next((os.path.join(weights_dir, n) for n in names
+                 if os.path.exists(os.path.join(weights_dir, n))), None)
+
+
 def load_extractor(weights_dir: Optional[str], *,
                    device: DeviceLike = None) -> ExtractorParams:
     """YOLOv5x + ResNet-101 weights from ``weights_dir`` (``yolov5x.npz``
@@ -75,12 +91,8 @@ def load_extractor(weights_dir: Optional[str], *,
     weights from seed 0 when they are absent (a smoke mode)."""
     device = resolve_device(device)
     if weights_dir:
-        def find(*names):
-            return next((os.path.join(weights_dir, n) for n in names
-                         if os.path.exists(os.path.join(weights_dir, n))),
-                        None)
-        yolo_path = find("yolov5x.npz", "yolov5x.pt")
-        resnet_path = find("resnet101.npz", "resnet101.pth")
+        yolo_path = _find(weights_dir, "yolov5x.npz", "yolov5x.pt")
+        resnet_path = _find(weights_dir, "resnet101.npz", "resnet101.pth")
         if yolo_path and resnet_path:
             return ExtractorParams(
                 yolo=load_checkpoint(yolo_path),
@@ -90,6 +102,48 @@ def load_extractor(weights_dir: Optional[str], *,
     return init_extractor(device=device)
 
 
+class FrcnnExtractorParams(NamedTuple):
+    frcnn: Dict
+    resnet: Dict
+
+    def to(self, device) -> "FrcnnExtractorParams":
+        return tree_map(lambda t: t.to(device), self)
+
+    @property
+    def device(self) -> torch.device:
+        return self.resnet["stem"]["conv"].device
+
+
+def init_frcnn_extractor(seed: int = 0, *,
+                         device: DeviceLike = None) -> FrcnnExtractorParams:
+    """Random Faster R-CNN (ResNet-50-FPN) + ResNet-101 parameters from
+    ``seed`` on ``device`` (the card unless told otherwise)."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    return FrcnnExtractorParams(frcnn=init_frcnn(gen),
+                                resnet=init_resnet(gen)).to(device)
+
+
+def load_frcnn_extractor(weights_dir: Optional[str], *,
+                         device: DeviceLike = None) -> FrcnnExtractorParams:
+    """Faster R-CNN + ResNet-101 weights from ``weights_dir``
+    (``fasterrcnn_resnet50_fpn.npz`` or ``.pth``, ``resnet101.npz`` or
+    ``.pth``) on ``device``; random weights from seed 0 when they are
+    absent (a smoke mode)."""
+    device = resolve_device(device)
+    if weights_dir:
+        frcnn_path = _find(weights_dir, "fasterrcnn_resnet50_fpn.npz",
+                           "fasterrcnn_resnet50_fpn.pth")
+        resnet_path = _find(weights_dir, "resnet101.npz", "resnet101.pth")
+        if frcnn_path and resnet_path:
+            return FrcnnExtractorParams(
+                frcnn=load_frcnn_checkpoint(frcnn_path),
+                resnet=load_torch_checkpoint(resnet_path)).to(device)
+        print(f"[vision] frcnn weights not found under {weights_dir!r}; "
+              "using random-init backbones (smoke mode)")
+    return init_frcnn_extractor(device=device)
+
+
 def validate_feature_mode(mode: str, image_model: str = "YOLOv5", *,
                           roi_trunk_size: Optional[int] = None,
                           roi_detect_size: Optional[int] = None) -> None:
@@ -97,8 +151,7 @@ def validate_feature_mode(mode: str, image_model: str = "YOLOv5", *,
     downstream would otherwise fall back to crop mode on a typo.  Unknown
     modes and models raise ``ValueError``, as does ``roi`` with Faster
     R-CNN, or a roi size that is not a positive multiple of 32 (YOLOv5's
-    largest stride: its anchor decode assumes the 8/16/32 grid).  The
-    Faster R-CNN extractor raises ``NotImplementedError``."""
+    largest stride: its anchor decode assumes the 8/16/32 grid)."""
     if mode not in FEATURE_MODES:
         raise ValueError(f"unknown feature_mode {mode!r}; expected one of "
                          f"{FEATURE_MODES}")
@@ -109,9 +162,6 @@ def validate_feature_mode(mode: str, image_model: str = "YOLOv5", *,
             "feature_mode='roi' is only implemented for the YOLOv5 "
             "pipeline; Faster R-CNN pools trunk features through its own "
             "ROI heads")
-    if image_model == "FasterRCNN":
-        raise NotImplementedError(
-            f"the Faster R-CNN extractor is not ported yet: {_LATER}")
     if mode == "roi":
         for name, v in (("roi_trunk_size", roi_trunk_size),
                         ("roi_detect_size", roi_detect_size)):
@@ -343,6 +393,87 @@ def extract_features_roi(params: ExtractorParams, canvases, metas,
 
 
 # ---------------------------------------------------------------------------
+# Faster R-CNN (core/preprocess.py:141-221 contract)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _cudnn_f32():
+    """cuDNN convolutions in float32 for the block: PyTorch's default lets
+    cuDNN run float32 convs in TF32 (10-bit mantissas), which is not the
+    float32 the JAX package computes this path in."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+@torch.no_grad()
+def extract_features_frcnn(params: FrcnnExtractorParams, canvases, metas,
+                           orig_sizes, *, num_objects: int = 36,
+                           canvas: int = FRCNN_CANVAS, crop_size: int = 224,
+                           use_kernel: bool = True,
+                           device: DeviceLike = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The Faster R-CNN pipeline for a batch, in float32 as the JAX package
+    computes it (cuDNN's TF32 off for the call; matmuls follow
+    ``torch.backends.cuda.matmul.allow_tf32``, off by default).
+
+    canvases   [B, canvas, canvas, 3] RGB 0..255 (uint8 or float), square
+               letterbox;
+    metas      [B, 3] (scale, top, left); orig_sizes [B, 2] (h, w).
+    Returns (features [B, S, 2048], positions [B, S, 95], boxes [B,
+    num_objects, 4] original-pixel xyxy) with S = num_objects + 1, on
+    ``device``: slot 0 is the letterboxed content region with the row
+    [0, 0, 1, 1] + zeros; slots 1.. are the detections by score, NOT
+    halved, rows [y1/H, y2/H, x1/W, x2/W] + the score at (label - 1) of 91;
+    invalid slots are zero.  ``use_kernel`` sends ResNet-101's identity
+    runs through kernel #4 (its float32 route)."""
+    canvases, metas, orig_sizes = _on_device(params, device, canvases,
+                                             metas, orig_sizes)
+    b = canvases.shape[0]
+    mean = torch.from_numpy(IMAGENET_MEAN).to(canvases.device)
+    std = torch.from_numpy(IMAGENET_STD).to(canvases.device)
+    with _cudnn_f32():
+        det = frcnn_detect(params.frcnn, (canvases / 255.0 - mean) / std,
+                           canvas=canvas, max_det=num_objects)
+        oh, ow = orig_sizes[:, 0], orig_sizes[:, 1]
+        boxes_orig = unletterbox_boxes(det.boxes, metas, oh, ow)
+
+        # crops from the canvas; slot 0 = the letterboxed content region
+        r, top, left = metas[:, 0], metas[:, 1], metas[:, 2]
+        full_box = torch.stack([left, top, left + ow * r, top + oh * r],
+                               dim=-1)
+        crops = crop_and_resize(
+            canvases, torch.cat([full_box[:, None], det.boxes], dim=1),
+            crop_size)
+        crops = (crops / 255.0 - mean) / std
+        feats = resnet_features(
+            params.resnet, crops.reshape(-1, crop_size, crop_size, 3),
+            use_kernel=use_kernel).reshape(b, num_objects + 1, -1)
+
+    slot_valid = torch.cat([torch.ones((b, 1), dtype=torch.bool,
+                                       device=canvases.device), det.valid],
+                           dim=1)
+    feats = feats * slot_valid[..., None]
+    h, w = oh[:, None], ow[:, None]
+    norm4 = torch.stack([boxes_orig[..., 1] / h, boxes_orig[..., 3] / h,
+                         boxes_orig[..., 0] / w, boxes_orig[..., 2] / w],
+                        dim=-1)
+    # an invalid slot's label 0 would index -1: its row is zeroed anyway
+    onehot = torch.nn.functional.one_hot(
+        torch.clamp(det.labels.long() - 1, min=0),
+        FRCNN_CLASSES).float() * det.scores[..., None]
+    pos_obj = torch.cat([norm4, onehot], dim=-1) * det.valid[..., None]
+    full_row = torch.zeros((b, 1, 4 + FRCNN_CLASSES),
+                           device=canvases.device)
+    full_row[:, :, 2:4] = 1.0
+    return feats, torch.cat([full_row, pos_obj], dim=1), boxes_orig
+
+
+# ---------------------------------------------------------------------------
 # One image from a file (the demo)
 # ---------------------------------------------------------------------------
 
@@ -353,7 +484,8 @@ def load_image_rgb(path: str) -> np.ndarray:
         return np.array(im.convert("RGB"), np.uint8)
 
 
-_EXTRACTORS: Dict[Tuple[Optional[str], str], ExtractorParams] = {}
+# (weights_dir, device) for YOLOv5, (weights_dir, device, "FasterRCNN")
+_EXTRACTORS: Dict[tuple, object] = {}
 
 
 def extract_single_image(path: str, *, image_model: str = "YOLOv5",
@@ -363,19 +495,32 @@ def extract_single_image(path: str, *, image_model: str = "YOLOv5",
                          rect: bool = False, compute_dtype=torch.bfloat16,
                          device: DeviceLike = None
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One image file -> (features [S, 2048], positions [S, 84], boxes
+    """One image file -> (features [S, 2048], positions [S, P], boxes
     [K, 4] original-pixel xyxy) as numpy arrays, extracted on ``device``
-    (the card unless told otherwise; ResNet through kernel #4 there): the
-    JAX package's ``extract_single_image`` for YOLOv5.  The square letterbox resizes the
-    decoded image on the device (``letterbox_image``); ``rect`` takes the
-    loader's rectangular letterbox.  The extractor is loaded once per
-    (``weights_dir``, device)."""
+    (the card unless told otherwise; ResNet-101 through kernel #4 there):
+    the JAX package's ``extract_single_image``.  YOLOv5 (P = 84): the
+    square letterbox resizes the decoded image on the device
+    (``letterbox_image``), ``rect`` takes the loader's rectangular
+    letterbox.  FasterRCNN (P = 95): the square letterbox at 800 px and
+    ``extract_features_frcnn`` in float32; ``max_obj``, ``rect`` and
+    ``compute_dtype`` do not apply, as in the JAX package.  The extractor
+    is loaded once per (``weights_dir``, device, model)."""
     if image_model not in ("YOLOv5", "FasterRCNN"):
         raise ValueError(f"unknown image_model {image_model!r}")
-    if image_model == "FasterRCNN":
-        raise NotImplementedError(
-            f"the Faster R-CNN extractor is not ported yet: {_LATER}")
     device = resolve_device(device)
+    if image_model == "FasterRCNN":
+        key = (weights_dir, str(device), image_model)
+        if key not in _EXTRACTORS:
+            _EXTRACTORS[key] = load_frcnn_extractor(weights_dir,
+                                                    device=device)
+        img = torch.from_numpy(load_image_rgb(path)).to(device)
+        hw = np.asarray(img.shape[:2], np.float32)
+        canvas, meta = letterbox_image(img, FRCNN_CANVAS)
+        feats, poss, boxes = extract_features_frcnn(
+            _EXTRACTORS[key], canvas[None], meta[None], hw[None],
+            num_objects=num_objects, device=device)
+        return (feats[0].cpu().numpy(), poss[0].cpu().numpy(),
+                boxes[0].cpu().numpy())
     key = (weights_dir, str(device))
     if key not in _EXTRACTORS:
         _EXTRACTORS[key] = load_extractor(weights_dir, device=device)

@@ -1,8 +1,10 @@
-"""ResNet-101 region encoder: crops -> 2048-d global features.
+"""ResNet region encoder (ResNet-101: crops -> 2048-d global features) and
+trunk (ResNet-50: Faster R-CNN's C2-C5 maps).
 
 The counterpart of the JAX package's ``vision/resnet.py``: torchvision's
-resnet101 truncated after the average pool, with inference BatchNorm folded
-into a scale and a bias per channel.  Parameters are nested dicts of
+resnet101 truncated after the average pool, or any other blocks per stage
+(``RESNET50_STAGES`` for Faster R-CNN's body), with inference BatchNorm
+folded into a scale and a bias per channel.  Parameters are nested dicts of
 tensors, conv kernels in torch OIHW layout.  Activations run NCHW in
 ``channels_last`` memory, so cuDNN runs channels-last convolutions and the
 fused bottleneck kernel reads NHWC bytes without a transpose.
@@ -30,8 +32,9 @@ from .bottleneck import fused_stage, stack_identity_blocks
 
 Params = Dict[str, Any]
 
-# torchvision resnet101: blocks per stage
+# torchvision resnet101 and resnet50: blocks per stage
 RESNET101_STAGES = (3, 4, 23, 3)
+RESNET50_STAGES = (3, 4, 6, 3)
 BN_EPS = 1e-5
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -142,7 +145,8 @@ def resnet_feature_maps(params: Params, images: torch.Tensor, *,
     """[N, H, W, 3] ImageNet-normalized images -> the four stage outputs
     [C2, C3, C4, C5] (strides 4, 8, 16 and 32) as [N, h, w, C] views in
     the compute dtype, on the plain route: the JAX package computes them
-    outside its Pallas kernel."""
+    outside its Pallas kernel (``roi`` mode's trunk, Faster R-CNN's
+    body)."""
     x = images.to(compute_dtype).permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
     x = torch.relu(_bn(_conv(x, params["stem"]["conv"], 2, 3),

@@ -92,10 +92,18 @@ def test_extract_single_image_matches_jax(rect, weights, image, jax_f32,
     assert (wdir, "cpu") in TP._EXTRACTORS          # loaded once
 
 
-def test_extract_single_image_refuses_faster_rcnn(image):
-    with pytest.raises(NotImplementedError, match="Faster R-CNN"):
-        TP.extract_single_image(image, image_model="FasterRCNN",
-                                device="cpu")
+def test_extract_single_image_refuses_faster_rcnn(image, monkeypatch):
+    """Faster R-CNN is no longer refused: it extracts the FRCNN contract
+    (37 slots of 95-wide rows, the whole image's row [0, 0, 1, 1] + zeros;
+    ``max_obj`` does not apply); an unknown model still is refused."""
+    from test_torch_frcnn_verbs import tiny_frcnn_extractor
+    monkeypatch.setattr(TP, "_EXTRACTORS", {
+        (None, "cpu", "FasterRCNN"): tiny_frcnn_extractor()})
+    feats, poss, boxes = TP.extract_single_image(
+        image, image_model="FasterRCNN", max_obj=3, device="cpu")
+    assert feats.shape == (37, 2048) and poss.shape == (37, 95)
+    assert boxes.shape == (36, 4)
+    np.testing.assert_array_equal(poss[0], [0, 0, 1, 1] + [0] * 91)
     with pytest.raises(ValueError, match="image_model"):
         TP.extract_single_image(image, image_model="yolo", device="cpu")
 

@@ -288,8 +288,7 @@ def test_resumable_manifest_invalidated_on_config_change(tmp_path):
 def test_feature_mode_validated():
     validate_feature_mode("crop")
     validate_feature_mode("roi")
-    with pytest.raises(NotImplementedError, match="Faster R-CNN"):
-        validate_feature_mode("crop", "FasterRCNN")
+    validate_feature_mode("crop", "FasterRCNN")        # ported
     with pytest.raises(ValueError, match="unknown feature_mode"):
         validate_feature_mode("ROI")
     with pytest.raises(ValueError, match="only implemented for the YOLO"):

@@ -128,12 +128,13 @@ def test_bf16_default_runs_close_to_f32(extractors):
 
 @pytest.mark.parametrize("mode,model,sizes,error", [
     ("roi", "YOLOv5", {"roi_trunk_size": 500}, ValueError),
-    ("crop", "FasterRCNN", {}, NotImplementedError),
+    ("roi", "FasterRCNN", {}, ValueError),
     ("ROI", "YOLOv5", {}, ValueError), ("crop", "yolo", {}, ValueError)])
 def test_validate_feature_mode(mode, model, sizes, error):
     with pytest.raises(error):
         TP.validate_feature_mode(mode, model, **sizes)
     TP.validate_feature_mode("crop", "YOLOv5")
+    TP.validate_feature_mode("crop", "FasterRCNN")
     TP.validate_feature_mode("roi", "YOLOv5", roi_trunk_size=448,
                              roi_detect_size=320)
 
