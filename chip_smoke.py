@@ -76,17 +76,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
     at ResNet-101's four identity runs (2, 3, 22 and 2 blocks) on 192, 133,
     5, 3 and 1 crops (128-row tiles that straddle crops, a ragged last
     tile, more tiles than SMs), within 1e-4 (f32) and 3e-2 (bf16) x
-    max|ref|; two bf16 launches of #4 on the stage-3 run at 192 crops, and
-    a third on half the SMs' worth of CTAs, are bitwise equal (a race in
-    the grid barrier or a tile order that depends on the grid would show
-    there);
+    max|ref|; two launches of #4 on the stage-3 run, and a third on half
+    the SMs' worth of CTAs, are bitwise equal, in bf16 at 192 crops and
+    in float32 at the Faster R-CNN batch's 1184 (a race in the grid
+    barrier or a tile order that depends on the grid would show there);
 15. time bottleneck: per run at 192 crops, each kernel's device and call
     time beside its bound (and as TFLOP/s and a multiple of it), its
     plain version and the cuDNN yardstick (the same blocks as
-    channels-last ``F.conv2d`` with the epilogues); then kernel #4's
-    float32 route at the Faster R-CNN batch's 1184 crops, each run checked
-    against ``stage_reference`` (1e-4 x max|ref|) and timed beside its
-    bound, its plain version and cuDNN float32;
+    channels-last ``F.conv2d`` with the epilogues), #4 and #3 in both
+    dtypes; then kernel #4's float32 route at the Faster R-CNN batch's
+    1184 crops, each run checked against ``stage_reference`` (1e-4 x
+    max|ref|) and timed (device and call) beside its bound, its scratch
+    traffic, its plain version and cuDNN float32;
 16. extract: ``extract_features_batch`` at full width (YOLOv5x at 640,
     ResNet-101 at 224, random weights from seed 0) on the flagship's slot
     contract (36 objects, ``cap_half``, ``max_obj`` 5), bf16, 70 images in
@@ -179,12 +180,17 @@ TRAIN_STEPS = 20
 # fused attention calls per train step: 1 pair block + 2 encoder blocks +
 # 5 decoder self + 5 decoder cross
 LAUNCHES_PER_STEP = 13
-# H100 SXM data-sheet peaks: HBM bytes/s and float32 FLOP/s off the tensor
-# cores (the kernel computes in float32 on the CUDA cores)
+# H100 SXM data-sheet peaks: HBM bytes/s; float32 FLOP/s off the tensor
+# cores (the attention kernels compute in float32 on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 PEAK_BF16_FLOPS = 989e12              # dense, tensor cores
+# the bottleneck's float32 products: three TF32 passes on the tensor cores
+# (each operand split into a TF32 high and low part), so a float32
+# multiply-add costs three TF32 ones at the dense TF32 peak
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 # ResNet-101's identity runs at 224-px crops: (name, H=W, C, Wd, blocks)
 RESNET101_RUNS = (("stage1", 56, 256, 64, 2), ("stage2", 28, 512, 128, 3),
                   ("stage3", 14, 1024, 256, 22), ("stage4", 7, 2048, 512, 2))
@@ -1527,15 +1533,17 @@ def check_bottleneck(device, runs=RESNET101_RUNS, crops=CHECK_CROPS):
     return worst
 
 
-def check_determinism(device, run=RESNET101_RUNS[2], n=CROPS):
-    """Two bf16 launches of kernel #4 over ``run`` on n crops, and a third
-    on half the SMs' worth of CTAs, give the same bits: every output
+def check_determinism(device, run=RESNET101_RUNS[2], n=CROPS,
+                      dtype_name="bfloat16"):
+    """Two launches of kernel #4 over ``run`` on n crops in the dtype, and a
+    third on half the SMs' worth of CTAs, give the same bits: every output
     element has one owner and one summation order whatever the grid, so a
     difference means a race (the grid barrier, the ring's proxy fences)."""
     import torch
     from image_caption_tpu_torch.vision import bottleneck as B
+    dtype = getattr(torch, dtype_name)
     ws = bottleneck_weights(run, 102, device)
-    x = bottleneck_input(run, n, 202, device, torch.bfloat16)
+    x = bottleneck_input(run, n, 202, device, dtype)
     first, second = B.fused_stage(x, *ws), B.fused_stage(x, *ws)
     if x.is_cuda:
         ctas = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -1543,34 +1551,47 @@ def check_determinism(device, run=RESNET101_RUNS[2], n=CROPS):
         half = B._launch("fused_stage", x, *ws, max_ctas=ctas)
     else:                             # a rehearsal: the plain version
         ctas, half = 0, B.fused_stage(x, *ws)
-    bits = first.view(torch.int16)
-    differ = int((bits != second.view(torch.int16)).sum())
-    differ_grid = int((bits != half.view(torch.int16)).sum())
+    word = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    bits = first.view(word)
+    differ = int((bits != second.view(word)).sum())
+    differ_grid = int((bits != half.view(word)).sum())
     print(f"kernel check bottleneck determinism {run[0]} N={n} blocks="
-          f"{run[4]} bfloat16: two launches, {differ} of {first.numel()} "
+          f"{run[4]} {dtype_name}: two launches, {differ} of {first.numel()} "
           f"elements differ in their bits; on {ctas} CTAs, {differ_grid} "
           f"differ (want 0 and 0)", flush=True)
     if differ or differ_grid:
-        raise AssertionError("fused_stage is not deterministic")
+        raise AssertionError(f"fused_stage is not deterministic in "
+                             f"{dtype_name}")
 
 
 def bottleneck_bound(run, n: int, nblk: int, elem: int):
     """Least time for ``nblk`` blocks of a run on n crops: x read and y
     written once, the weights read once, against the multiply-adds of the
-    three convs at the dtype's peak (bf16 tensor cores, f32 CUDA cores)."""
+    three convs at the dtype's peak (bf16 on the tensor cores; float32 as
+    three TF32 passes on them, 495 / 3 = 165 TFLOP/s)."""
     _, h, c, wd, _ = run
     nbytes = (2 * n * h * h * c * elem
               + nblk * ((2 * c * wd + 9 * wd * wd) * elem + 4 * (4 * wd + 2 * c)))
     flops = 2 * n * h * h * nblk * (2 * c * wd + 9 * wd * wd)
-    peak = PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS
+    peak = PEAK_BF16_FLOPS if elem == 2 else PEAK_TF32_FLOPS / TF32_PASSES
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def scratch_bytes(run, n: int, nblk: int, elem: int) -> int:
+    """The design's own activation traffic for ``nblk`` blocks on n crops,
+    outside the bound: per block the reduce reads x and writes h1, the 3x3
+    reads h1 (each element once, its other taps from L2) and writes h2,
+    the expand reads h2 and the residual and writes y: elem x N*H*W x
+    (3 C + 4 Wd) bytes, through HBM where a phase's tensors outgrow L2."""
+    _, h, c, wd, _ = run
+    return elem * n * h * h * (3 * c + 4 * wd) * nblk
+
+
 def time_bottleneck(card: str):
-    """Per identity run at N=192 crops: kernel #4 over the run in bf16 and
-    f32, kernel #3 over its first block in bf16; each beside its bound
+    """Per identity run at N=192 crops: kernels #4 over the run and #3
+    over its first block, each in bf16 and f32; each beside its bound
     (with its TFLOP/s and its time as a multiple of the bound), its plain
     version, the cuDNN yardstick (the same blocks as three channels-last
     ``F.conv2d`` with the epilogues each, the route of
@@ -1592,7 +1613,8 @@ def time_bottleneck(card: str):
                   for i in range(run[4])]
         cases = [("fused_stage", torch.bfloat16, run[4]),
                  ("fused_stage", torch.float32, run[4]),
-                 ("fused_bottleneck", torch.bfloat16, 1)]
+                 ("fused_bottleneck", torch.bfloat16, 1),
+                 ("fused_bottleneck", torch.float32, 1)]
         for name, dtype, nblk in cases:
             x = bottleneck_input(run, CROPS, 300 + k, "cuda", dtype)
             if name == "fused_stage":
@@ -1623,6 +1645,8 @@ def time_bottleneck(card: str):
             (row["bound_ms"], row["bound_by"], row["bytes"],
              row["flops"]) = bottleneck_bound(run, CROPS, nblk,
                                               x.element_size())
+            row["scratch_bytes"] = scratch_bytes(run, CROPS, nblk,
+                                                 x.element_size())
             row["tflops"] = row["flops"] / row["ms"] / 1e9
             row["x_bound"] = row["ms"] / row["bound_ms"]
             rows[name][f"{run[0]}_{row['dtype']}"] = row
@@ -1632,7 +1656,8 @@ def time_bottleneck(card: str):
                   f"a call), {row['tflops']:.1f} TFLOP/s, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
                   f"{row['flops'] / 1e9:.1f} GFLOP, {row['bytes'] / 1e6:.1f}"
-                  f" MB), {row['x_bound']:.2f}x the bound, plain "
+                  f" MB), {row['x_bound']:.2f}x the bound, scratch "
+                  f"{row['scratch_bytes'] / 1e9:.2f} GB, plain "
                   f"{row['plain_ms']:.4f} ms, cuDNN {row['cudnn_ms']:.4f} ms, "
                   f"kernel/cuDNN {row['ms'] / row['cudnn_ms']:.2f}x [{card}]",
                   flush=True)
@@ -2714,8 +2739,9 @@ def check_stage_f32_frcnn(card: str):
     crops, each ResNet-101 identity run: against ``stage_reference``
     (1e-4 x max|ref|), then its device time beside its bound, the plain
     version and the cuDNN float32 sequence (CUDA-graph replay, one call a
-    graph, 1 warm-up and 3 timed replays).  Returns (the largest error,
-    rows keyed ``<run>_float32_n1184``)."""
+    graph, 1 warm-up and 3 timed replays; the call time by events around
+    one call, median of 3), with the design's scratch traffic beside it.
+    Returns (the largest error, rows keyed ``<run>_float32_n1184``)."""
     import torch
     from image_caption_tpu_torch.vision import bottleneck as B
     from image_caption_tpu_torch.vision.resnet import _bottleneck
@@ -2756,21 +2782,26 @@ def check_stage_f32_frcnn(card: str):
                "dtype": "float32",
                "ms": device_ms(lambda: B.fused_stage(x, *ws), per_graph=1,
                                **timing),
-               "call_ms": None,
+               "call_ms": call_ms(lambda: B.fused_stage(x, *ws), **timing),
                "plain_ms": device_ms(lambda: B.stage_reference(x, *ws),
                                      per_graph=1, **timing),
                "cudnn_ms": device_ms(cudnn, per_graph=1, **timing),
                "library_ms": None}
         (row["bound_ms"], row["bound_by"], row["bytes"],
          row["flops"]) = bottleneck_bound(run, FRCNN_CROPS, run[4], 4)
+        row["scratch_bytes"] = scratch_bytes(run, FRCNN_CROPS, run[4], 4)
         row["tflops"] = row["flops"] / row["ms"] / 1e9
         row["x_bound"] = row["ms"] / row["bound_ms"]
         rows[f"{run[0]}_float32_n{FRCNN_CROPS}"] = row
         print(f"time fused_stage {run[0]} (N, C, H, W, Wd, blocks)="
               f"{tuple(row['shape'])} float32: kernel {row['ms']:.4f} ms on "
-              f"the device, {row['tflops']:.1f} TFLOP/s, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"{row['x_bound']:.2f}x the bound, plain {row['plain_ms']:.4f} "
+              f"the device ({row['call_ms']:.4f} ms a call), "
+              f"{row['tflops']:.1f} TFLOP/s, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; float32 as "
+              f"{TF32_PASSES} TF32 passes), {row['x_bound']:.2f}x the bound, "
+              f"scratch {row['scratch_bytes'] / 1e9:.2f} GB "
+              f"({1e3 * row['scratch_bytes'] / PEAK_BYTES_PER_S:.2f} ms at "
+              f"HBM rate), plain {row['plain_ms']:.4f} "
               f"ms, cuDNN {row['cudnn_ms']:.4f} ms, kernel/cuDNN "
               f"{row['ms'] / row['cudnn_ms']:.2f}x [{card}]", flush=True)
         del x
@@ -2812,6 +2843,7 @@ def main() -> int:
     check_attention_determinism("cuda")
     max_err_bneck = check_bottleneck("cuda")
     check_determinism("cuda")
+    check_determinism("cuda", n=FRCNN_CROPS, dtype_name="float32")
     times = time_kernel(card)
     times_bwd = time_kernel_bwd(card)
     times_bneck = time_bottleneck(card)

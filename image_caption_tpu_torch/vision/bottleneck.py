@@ -17,8 +17,11 @@ route ``vision/resnet._bottleneck``, which applies BN in x's dtype).
     tensors the hand-written ``sm_90a`` kernel of
     ``csrc/fused_bottleneck.cu``, one launch per call (a whole stack of
     blocks for ``fused_stage``); each call adds one to its ``launches``.
-    bf16 runs every phase as one GEMM over all crops on a persistent
-    cooperative grid, one CTA per SM; f32 runs one thread block per crop.
+    Both dtypes run every conv as one GEMM over all crops on a persistent
+    cooperative grid, one CTA per SM, with ``wgmma`` on the tensor cores:
+    bf16 as it is, f32 in three TF32 passes (each operand split into a TF32
+    high and low part, ``tf32_split``; three products) that keep f32
+    accuracy.
 
 Layout: x is an NCHW tensor in ``torch.channels_last`` memory (NHWC bytes,
 what the kernel reads); the output has the same layout.  Weights are the
@@ -54,6 +57,23 @@ def check_kernel_shape(n: int, h: int, w: int, c: int, wd: int) -> None:
     if n * h * w * max(c, wd) > _INT32_MAX:
         raise ValueError(f"{n * h * w} pixels of {max(c, wd)} channels "
                          f"overflow the kernel's 32-bit element index")
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 stored mantissa bits, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds), still float32 with its 13
+    low bits zero.  Rounds the magnitude bits, so signs, zeros and
+    subnormals keep their form."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 w -> (hi, lo), both TF32 values: hi = tf32(w), lo = tf32(w -
+    hi), so hi + lo is w within 2^-22 |w|.  The f32 kernel takes its
+    weights so and splits its activations the same way in registers."""
+    hi = tf32_round(w)
+    return hi, tf32_round(w - hi)
 
 
 def _rows(v: torch.Tensor) -> torch.Tensor:
@@ -166,26 +186,34 @@ def _entry(name: str, n_ints: int):
     return fn
 
 
+def kernel_weights(dtype: torch.dtype, w1, w2, w3):
+    """Stacked weights in the kernel's layout: cast to ``dtype``, K-major
+    (w2 as [n, out, 3, 3, in]), and for float32 each [2, n, ...], its TF32
+    high parts then its low parts (``tf32_split``)."""
+    ws = (w1.to(dtype).contiguous(),
+          w2.to(dtype).permute(0, 1, 3, 4, 2).contiguous(),
+          w3.to(dtype).contiguous())
+    if dtype == torch.float32:
+        ws = tuple(torch.stack(tf32_split(t)) for t in ws)
+    return ws
+
+
 def _launch(entry: str, x, w1, sb1, w2, sb2, w3, sb3,
             max_ctas: int = 0) -> torch.Tensor:
     """Run the kernel ``entry`` of ``csrc/fused_bottleneck.cu`` on the
-    current stream: weights cast to x's dtype and laid out K-major (w2 as
-    [n, out, 3, 3, in]); scratch for h1 and h2 and, for bf16, the zeroed
-    grid-barrier word allocated here.  bf16 launches one CTA per SM, or at
-    most ``max_ctas`` where that is above 0 (the grid-independence check of
-    ``chip_smoke.py``)."""
+    current stream: weights as ``kernel_weights`` lays them out; scratch
+    for h1 and h2 and the zeroed grid-barrier word allocated here.  It
+    launches one CTA per SM, or at most ``max_ctas`` where that is above 0
+    (the grid-independence check of ``chip_smoke.py``)."""
     dt = x.dtype
     n, c, h, w = x.shape
     nblk, wd = w1.shape[0], w1.shape[1]
-    w1k = w1.to(dt).contiguous()
-    w2k = w2.to(dt).permute(0, 1, 3, 4, 2).contiguous()
-    w3k = w3.to(dt).contiguous()
+    w1k, w2k, w3k = kernel_weights(dt, w1, w2, w3)
     sbs = [t.float().contiguous() for t in (sb1, sb2, sb3)]
     y = torch.empty_like(x, memory_format=torch.channels_last)
     h1 = torch.empty((n, h, w, wd), dtype=dt, device=x.device)
     h2 = torch.empty_like(h1)
-    bar = (torch.zeros(1, dtype=torch.int32, device=x.device)
-           if dt == torch.bfloat16 else None)
+    bar = torch.zeros(1, dtype=torch.int32, device=x.device)
     ints = ([n, h, w, c, wd] + ([nblk] if entry == "fused_stage" else [])
             + [max_ctas, _DTYPE_CODE[dt]])
     with torch.cuda.device(x.device):
@@ -194,7 +222,7 @@ def _launch(entry: str, x, w1, sb1, w2, sb2, w3, sb3,
             x.data_ptr(), y.data_ptr(), h1.data_ptr(), h2.data_ptr(),
             w1k.data_ptr(), sbs[0].data_ptr(), w2k.data_ptr(),
             sbs[1].data_ptr(), w3k.data_ptr(), sbs[2].data_ptr(),
-            None if bar is None else bar.data_ptr(), *ints, stream)
+            bar.data_ptr(), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     return y
