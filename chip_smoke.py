@@ -152,7 +152,34 @@ Phases, in order; any failed check raises and the script exits non-zero:
     every split;
 26. frcnn demo: the ``demo`` verb with the FRCNN preset's captioner,
     greedy with overlays and beam 3: 2 launches of kernel #1 and 4 of #4
-    a run.
+    a run;
+27. dp world 1 (after phase 13): an NCCL group of one rank in this
+    process, the XE preset of phase 7: 20 data-parallel ``Trainer`` steps
+    against 20 plain ones from the same weights before and after it
+    (parameters bitwise equal where two plain runs are, else within 1e-6
+    norm-relative; 13 launches of each attention kernel a step), the
+    steps/s of both and the gradient all-reduce's ms a step;
+28. dp world 2: two subprocesses (``chip_smoke.py dp-worker``) on the one
+    card over gloo, global batch 32, all dropout off, against one process
+    here: 3 XE steps (losses 2e-4, step-1 gradients 1e-4 norm-relative,
+    the ranks' weights bitwise equal), 3 pipelined SCST steps of the RL
+    preset from phase 10's start with a frozen df (samples equal but at a
+    top-2 margin below 1e-4, metrics 2e-4), ``decode_split`` of phase 6's
+    split greedy and beam 3 (captions equal but at ties), launches per
+    rank; a functional check, not a scaling figure;
+29. profile: ``train --profile --epochs 1`` through ``main.main`` on the
+    synthetic dataset writes a Chrome trace holding the attention
+    kernels; ``train --debug-nans`` runs a clean epoch and raises
+    ``FloatingPointError`` on a dataset with a NaN feature;
+30. sharded extract (after phase 18): ``extract_features_sharded`` over
+    a single-process mesh of two replicas on the card, bf16, 70 JPEGs at
+    batch 32: bitwise equal to ``extract_features_batch`` on the same
+    halves (4 launches of #4 a batch a replica); against batches of 32 on
+    one device, features of slot 0 and of images whose detections agree
+    within 3e-2 x max|ref| (images that detect otherwise are printed with
+    the detector's own bf16 score gap between the two batch sizes); then
+    ``caption_images`` over that mesh: equal to one device's at batch 16,
+    and at batch 32 on images with equal detections but at ties.
 
 It prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without CUDA it exits
@@ -2811,6 +2838,708 @@ def check_stage_f32_frcnn(card: str):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phases 27-30: data parallelism over torch.distributed, train --profile
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3
+DP_WORLD = 2
+# the bars of PERF.md §2: losses, gradients (norm-relative per tensor), and
+# the top-2 margin under which a sampled or decoded token may flip
+LOSS_TOL, GRAD_TOL, MARGIN = 2e-4, 1e-4, 1e-4
+
+
+def join_group(tmp: str, world: int, rank: int, backend: str):
+    """This process as rank ``rank`` of ``world`` through a rendezvous
+    file under ``tmp``."""
+    from image_caption_tpu_torch.parallel import distributed
+    distributed.initialize("file://" + os.path.join(tmp, "rendezvous"),
+                           world, rank, backend=backend, timeout=600)
+
+
+def launch_counts():
+    from image_caption_tpu_torch.ops.attention import (fused_attention,
+                                                       fused_attention_bwd)
+    return {"fused_attention": fused_attention.launches,
+            "fused_attention_bwd": fused_attention_bwd.launches}
+
+
+def zero_launch_counts():
+    from image_caption_tpu_torch.ops.attention import (fused_attention,
+                                                       fused_attention_bwd)
+    from image_caption_tpu_torch.vision import bottleneck as B
+    fused_attention.launches = fused_attention_bwd.launches = 0
+    B.fused_stage.launches = B.fused_bottleneck.launches = 0
+
+
+def params_digest(model) -> str:
+    """sha1 of every parameter's bytes, in order: equal digests are
+    bitwise-equal weights."""
+    import hashlib
+    h = hashlib.sha1()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def norm_rel(got, want) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+# world 1's overhead: DP and plain steps timed in alternating blocks (the
+# order flipped every round, so a drift of the host's speed cancels), the
+# median of the rounds' time ratios
+DP_BLOCK_STEPS, DP_ROUNDS = 10, 10
+
+
+def drive_dp_world1(cfg, card: str, device: str = "cuda"):
+    """An NCCL group of one rank in this process (gloo on the CPU): 20
+    data-parallel ``Trainer`` steps on one batch against 20 steps of a
+    plain ``Trainer`` from the same weights and dropout stream, before and
+    after it; then both trainers' steps in alternating blocks for the DP
+    overhead.  Returns the DP run's kernel launches, the steps/s of both
+    and the median overhead, and the gradient all-reduce's ms at the
+    model's parameter bytes."""
+    import torch
+    from image_caption_tpu_torch.parallel import distributed
+    from image_caption_tpu_torch.parallel.mesh import (all_reduce_grads,
+                                                       make_mesh)
+    from image_caption_tpu_torch.train.loop import Trainer
+    batch = train_batch(cfg.model, cfg.train.batch_size, seed=2)
+
+    def run(trainer):
+        losses = [trainer.train_step(*batch)["loss"]
+                  for _ in range(TRAIN_STEPS)]
+        weights = {k: v.detach().clone()
+                   for k, v in trainer.state.model.state_dict().items()}
+        return losses, weights
+
+    def block(trainer) -> float:
+        synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(DP_BLOCK_STEPS):
+            trainer.train_step(*batch)
+        synchronize(device)
+        return time.perf_counter() - t0
+
+    plain_trainer = Trainer(cfg, device=device, seed=0)
+    plain_a = run(plain_trainer)
+    with tempfile.TemporaryDirectory() as tmp:
+        join_group(tmp, 1, 0, "gloo" if device == "cpu" else "nccl")
+        try:
+            mesh = make_mesh([device] if device == "cpu" else None)
+            trainer = Trainer(cfg, mesh=mesh, seed=0)
+            zero_launch_counts()
+            dp = run(trainer)
+            launches = launch_counts()
+            params = list(trainer.state.model.parameters())
+            nbytes = sum(p.numel() * p.element_size() for p in params)
+            all_reduce_grads(mesh, params)            # first use
+            synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                all_reduce_grads(mesh, params)
+            synchronize(device)
+            reduce_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+            backend = torch.distributed.get_backend()
+            plain_s, dp_s, ratios = [], [], []
+            for i in range(DP_ROUNDS):
+                if i % 2 == 0:
+                    plain_s.append(block(plain_trainer))
+                    dp_s.append(block(trainer))
+                else:
+                    dp_s.append(block(trainer))
+                    plain_s.append(block(plain_trainer))
+                ratios.append(dp_s[-1] / plain_s[-1])
+        finally:
+            distributed.shutdown()
+    plain_b = run(Trainer(cfg, device=device, seed=0))
+    want = LAUNCHES_PER_STEP * TRAIN_STEPS
+    print(f"dp world 1: {backend} group of one rank, launches over "
+          f"{TRAIN_STEPS} steps {launches}, want {want} each", flush=True)
+    if device != "cpu" and any(n != want for n in launches.values()):
+        raise AssertionError(f"dp world 1 launched {launches}")
+    deterministic = all(torch.equal(plain_a[1][k], plain_b[1][k])
+                        for k in plain_a[1])
+    bitwise = all(torch.equal(dp[1][k], plain_a[1][k]) for k in dp[1])
+    worst = max(norm_rel(dp[1][k].float(), plain_a[1][k].float())
+                for k in dp[1])
+    loss_err = max(abs(a - b) for a, b in zip(dp[0], plain_a[0]))
+    print(f"dp world 1: parameters after {TRAIN_STEPS} steps bitwise equal "
+          f"to Trainer's: {bitwise} (norm-relative max {worst:.3e}); two "
+          f"plain Trainer runs bitwise equal: {deterministic}; losses "
+          f"max_abs_err {loss_err:.3e}", flush=True)
+    if deterministic and not bitwise:
+        raise AssertionError("data-parallel world 1 differs from Trainer "
+                             "though Trainer repeats itself bitwise")
+    if not (worst <= 1e-6 and loss_err <= LOSS_TOL):
+        raise AssertionError(f"dp world 1: parameters {worst:.3e}, losses "
+                             f"{loss_err:.3e} from Trainer's")
+    steps = DP_BLOCK_STEPS * DP_ROUNDS
+    overhead = statistics.median(ratios) - 1
+    rates = (steps / sum(plain_s), steps / sum(dp_s), overhead)
+    print(f"dp world 1: {DP_ROUNDS} rounds of {DP_BLOCK_STEPS} Trainer and "
+          f"{DP_BLOCK_STEPS} DP steps, alternating, at batch "
+          f"{cfg.train.batch_size}: steps/s Trainer {rates[0]:.3f}, DP "
+          f"{rates[1]:.3f}; DP overhead, median of the rounds' time ratios, "
+          f"{overhead:+.4f} of a step (rounds {min(ratios) - 1:+.4f} to "
+          f"{max(ratios) - 1:+.4f}) [{card}]", flush=True)
+    print(f"dp world 1: gradient all-reduce over one flat buffer "
+          f"{reduce_ms:.4f} ms a step over {nbytes / 1e6:.3f} MB of float32 "
+          f"gradients ({backend}, one rank: the flatten, the collective and "
+          f"the copy back) [{card}]", flush=True)
+    return launches, rates, reduce_ms
+
+
+def dp_inputs(xe_cfg, rl_cfg, scst_weights, tmp: str):
+    """The world-2 phase's inputs: configurations, weights and global
+    batches (all dropout off in training), with the frozen df written to
+    ``tmp``."""
+    import torch
+    from image_caption_tpu_torch.models.captioner import Captioner
+    off = {"model.dropout": 0.0, "model.attention_dropout": 0.0}
+    xe = xe_cfg.with_overrides(**off)
+    xe_weights = Captioner(xe.model, device="cpu",
+                           generator=torch.Generator().manual_seed(3))
+    rl_batch = scst_batch(rl_cfg.model, rl_cfg.train.batch_size, seed=2)
+    write_batch_df(rl_cfg.model, rl_batch, tmp)
+    rl_over = dict(off, **{"data.data_path": tmp, "rl.pipeline_depth": 1})
+    decode = Captioner(rl_cfg.model, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    return {
+        "xe": {"cfg": xe, "weights": xe_weights.state_dict(),
+               "batch": train_batch(xe.model, xe.train.batch_size, seed=4)},
+        "scst": {"cfg": rl_cfg.with_overrides(**rl_over),
+                 "weights": scst_weights, "batch": rl_batch},
+        "decode": {"cfg": rl_cfg, "weights": decode.state_dict(),
+                   "images": EXTRACT_IMAGES, "batch_size": EXTRACT_BATCH}}
+
+
+def dp_worker(rank: int, world: int, workdir: str) -> int:
+    """``python chip_smoke.py dp-worker RANK WORLD DIR``: one rank of the
+    world-2 phase, on ``cuda:0`` over gloo, with every count and result
+    written to ``DIR/rank{RANK}.pt``."""
+    import torch
+    from image_caption_tpu_torch.models.captioner import Captioner
+    from image_caption_tpu_torch.parallel import distributed
+    from image_caption_tpu_torch.parallel.mesh import make_mesh
+    from image_caption_tpu_torch.serve import decode_split
+    from image_caption_tpu_torch.train.loop import RLTrainer, Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    cfgs = {k: v["cfg"] for k, v in inputs.items()}
+    device = "cuda:0" if torch.cuda.is_available() else "cpu"
+    join_group(workdir, world, rank, "gloo")
+    out = {}
+    try:
+        mesh = make_mesh([device])
+        # XE: 3 steps on the global batch
+        xe = Trainer(cfgs["xe"], mesh=mesh, seed=3)
+        xe.state.model.load_state_dict(inputs["xe"]["weights"])
+        zero_launch_counts()
+        losses, grads = [], None
+        synchronize(device)
+        t0 = time.perf_counter()
+        for step in range(DP_STEPS):
+            losses.append(xe.train_step(*inputs["xe"]["batch"])["loss"])
+            if step == 0 and rank == 0:
+                grads = {n: p.grad.cpu() for n, p in
+                         xe.state.model.named_parameters()}
+        synchronize(device)
+        out["xe"] = {"losses": losses, "grads": grads,
+                     "seconds": time.perf_counter() - t0,
+                     "digest": params_digest(xe.state.model),
+                     "launches": launch_counts()}
+        del xe
+        # SCST: 3 pipelined steps, frozen df, the samples kept
+        words = vocabulary(cfgs["scst"].model.num_vocab)
+        rl = RLTrainer(cfgs["scst"], {w: i for i, w in words.items()},
+                       mesh=mesh, seed=0)
+        rl.state.model.load_state_dict(inputs["scst"]["weights"])
+        score, samples = rl._host_rewards, []
+
+        def kept(sample_seq, captions):
+            samples.append(sample_seq.copy())
+            return score(sample_seq, captions)
+        rl._host_rewards = kept
+        batch = rl.to_device(inputs["scst"]["batch"])
+        zero_launch_counts()
+        synchronize(device)
+        t0 = time.perf_counter()
+        metrics = [rl.train_step_device(batch)
+                   for _ in range(DP_STEPS)] + [rl.flush()]
+        synchronize(device)
+        out["scst"] = {"metrics": [{k: float(v) for k, v in m.items()}
+                                   for m in metrics if m is not None],
+                       "samples": samples, "seconds":
+                       time.perf_counter() - t0,
+                       "digest": params_digest(rl.state.model),
+                       "launches": launch_counts(),
+                       "frozen_df": rl.reward_computer.uses_frozen_df}
+        del rl
+        # decode_split of the 70-image split, each rank its rows
+        m, dec = cfgs["decode"].model, inputs["decode"]
+        model = Captioner(m, device=device)
+        model.load_state_dict(dec["weights"])
+        split = make_split(m, dec["images"], seed=0)
+        out["decode"] = {}
+        for label, beam in (("greedy", None), ("beam3", 3)):
+            zero_launch_counts()
+            caps = decode_split(model, cfgs["decode"], split,
+                                dec["batch_size"], vocabulary(m.num_vocab),
+                                beam_size=beam, device=device, mesh=mesh)
+            out["decode"][label] = {"captions": caps,
+                                    "launches": launch_counts()}
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def reference_scst(cfg, weights, batch, device: str):
+    """The single-process run of the world-2 phase's SCST steps (serial,
+    the trajectory of the pipelined schedule): each step's samples, the
+    CPU-side top-2 margins of their log-probs, and the metrics."""
+    import torch
+    from image_caption_tpu_torch.rl.step import rl_sample, rl_update
+    from image_caption_tpu_torch.train.loop import RLTrainer
+    words = vocabulary(cfg.model.num_vocab)
+    trainer = RLTrainer(cfg, {w: i for i, w in words.items()},
+                        device=device, seed=0)
+    trainer.state.model.load_state_dict(weights)
+    dev_batch = trainer.to_device(batch)
+    steps = []
+    for _ in range(DP_STEPS):
+        s = rl_sample(trainer.state, dev_batch, cfg, seed=trainer.step_seed)
+        seq, caps = s.host()
+        top2 = torch.log_softmax(s.logits.detach(), -1).topk(2, -1).values
+        margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+        rewards, self_cider = trainer._host_rewards(seq, caps)
+        m = rl_update(trainer.state, s, rewards, self_cider, cfg)
+        steps.append({"samples": seq.copy(), "margins": margin,
+                      "metrics": {k: float(v) for k, v in m.items()}})
+    return steps
+
+
+def caption_ties(model, cfg, split, want, got, beam, batch_size: int):
+    """Images whose captions differ between ``want`` (single process) and
+    ``got``: each difference must be a near-tie of the single process's
+    model.  Greedy: at the first differing word, its teacher-forced top-2
+    margin on its own tokens is below MARGIN.  Beam: the two captions'
+    summed log-probabilities (teacher-forced, the RL preset's beam score)
+    differ by less than MARGIN.  Returns the differing count."""
+    import torch
+    words = vocabulary(cfg.model.num_vocab)
+    index = {w: i for i, w in words.items()}
+    t = cfg.model.max_length
+
+    def tokens(caption):
+        seq = [1] + [index[w] for w in caption.split() if w != "."]
+        if caption.endswith("."):
+            seq.append(2)
+        return (seq + [0] * t)[:t]
+
+    rows = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    for i in rows:
+        f = split.features[i:i + 1]
+        p = split.positions[i:i + 1]
+        caps = torch.tensor([tokens(want[i]), tokens(got[i])])
+        lp = torch.log_softmax(model.logits(
+            np.repeat(f, 2, 0), np.repeat(p, 2, 0), caps,
+            use_kernel=True).float(), -1).cpu()
+        if beam is None:
+            a, b = want[i].split(), got[i].split()
+            k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            top2 = lp[0, min(k, t - 2)].topk(2).values
+            gap = (top2[0] - top2[1]).item()
+        else:
+            picked = lp.gather(2, caps[:, 1:, None])[..., 0]
+            keep = (caps[:, 1:] != 0).float()
+            score = (picked * keep).sum(1)
+            gap = abs(score[0] - score[1]).item()
+        print(f"dp world 2: image {i} {'beam' if beam else 'greedy'} "
+              f"caption differs; single-process gap {gap:.3e}", flush=True)
+        if not gap < MARGIN:
+            raise AssertionError(f"image {i}: captions {want[i]!r} and "
+                                 f"{got[i]!r} differ at a gap of {gap:.3e}")
+    return len(rows)
+
+
+def drive_dp_world2(xe_cfg, rl_cfg, scst_weights, card: str,
+                    device: str = "cuda"):
+    """Two ranks in two subprocesses on one card over gloo (NCCL refuses
+    two ranks on one device), global batch 32 (16 a rank), all dropout
+    off, against the single-process run in this process: 3 XE steps
+    (losses, step-1 gradients, the ranks' weights bitwise equal), 3
+    pipelined SCST steps of the RL preset with a frozen df (samples equal
+    but at a top-2 margin below MARGIN, losses), and ``decode_split`` of
+    the 70-image split greedy and beam 3.  A functional check on one card,
+    not a scaling figure.  Returns each rank's launches per path."""
+    import subprocess
+    import torch
+    from image_caption_tpu_torch.models.captioner import Captioner
+    from image_caption_tpu_torch.serve import decode_split
+    from image_caption_tpu_torch.train.loop import Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dp_inputs(xe_cfg, rl_cfg, scst_weights, tmp)
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "dp-worker",
+                     str(r), str(DP_WORLD), tmp],
+                    stdout=log, stderr=subprocess.STDOUT))
+        try:
+            cfgs = {k: v["cfg"] for k, v in inputs.items()}
+            plain = Trainer(cfgs["xe"], device=device, seed=3)
+            plain.state.model.load_state_dict(inputs["xe"]["weights"])
+            want_xe, want_grads = [], None
+            for step in range(DP_STEPS):
+                want_xe.append(plain.train_step(*inputs["xe"]["batch"])
+                               ["loss"])
+                if step == 0:
+                    want_grads = {n: p.grad.cpu() for n, p in
+                                  plain.state.model.named_parameters()}
+            del plain
+            want_scst = reference_scst(cfgs["scst"], scst_weights,
+                                       inputs["scst"]["batch"], device)
+            m = rl_cfg.model
+            model = Captioner(m, device=device)
+            model.load_state_dict(inputs["decode"]["weights"])
+            split = make_split(m, EXTRACT_IMAGES, seed=0)
+            want_caps = {label: decode_split(
+                model, rl_cfg, split, EXTRACT_BATCH, vocabulary(m.num_vocab),
+                beam_size=beam, device=device)
+                for label, beam in (("greedy", None), ("beam3", 3))}
+        finally:
+            for p in procs:
+                p.wait(timeout=900)
+        seconds = time.perf_counter() - t0
+        logs = []
+        for r, p in enumerate(procs):
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                logs.append(f.read())
+            if p.returncode != 0:
+                raise AssertionError(f"dp world 2 rank {r} exited "
+                                     f"{p.returncode}:\n{logs[r][-3000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+    print(f"dp world 2: two ranks on one card over gloo, both phases done "
+          f"in {seconds:.1f} s", flush=True)
+
+    # XE
+    loss_err = max(abs(a - b) for r in ranks
+                   for a, b in zip(r["xe"]["losses"], want_xe))
+    grad_err = max(norm_rel(g, want_grads[n])
+                   for n, g in ranks[0]["xe"]["grads"].items())
+    same = ranks[0]["xe"]["digest"] == ranks[1]["xe"]["digest"]
+    print(f"dp world 2 xe: losses {' '.join(f'{x:.6f}' for x in want_xe)} "
+          f"(single process), max_abs_err {loss_err:.3e} (tol {LOSS_TOL:g});"
+          f" step-1 gradients norm-relative max {grad_err:.3e} (tol "
+          f"{GRAD_TOL:g}); ranks' weights bitwise equal after {DP_STEPS} "
+          f"steps: {same}", flush=True)
+    if not (loss_err <= LOSS_TOL and grad_err <= GRAD_TOL and same):
+        raise AssertionError("dp world 2 XE disagrees with one process")
+
+    # SCST
+    if not all(r["scst"]["frozen_df"] for r in ranks):
+        raise AssertionError("dp world 2 scst: the frozen df was not used")
+    flips, compared, worst = 0, 0, 0.0
+    b = rl_cfg.train.batch_size // DP_WORLD
+    for step, want in enumerate(want_scst):
+        differ = 0
+        for rank, r in enumerate(ranks):
+            rows = slice(rank * b, (rank + 1) * b)
+            got = r["scst"]["samples"][step][:, 0]
+            diff = got != want["samples"][rows, 0]
+            bad = diff & (want["margins"][rows] >= MARGIN)
+            if bad.any():
+                i, t = np.argwhere(bad)[0]
+                raise AssertionError(
+                    f"dp world 2 scst step {step + 1}: rank {rank} sampled "
+                    f"({i}, {t}) differently at a margin of "
+                    f"{want['margins'][rows][i, t]:.3e}")
+            differ += int(diff.any(axis=1).sum())
+        flips += differ
+        if flips:
+            continue             # past a tie the trajectories part
+        compared += 1
+        for r in ranks:
+            for k, v in r["scst"]["metrics"][step].items():
+                worst = max(worst, abs(v - want["metrics"][k]))
+    same = ranks[0]["scst"]["digest"] == ranks[1]["scst"]["digest"]
+    print(f"dp world 2 scst: losses "
+          f"{' '.join(f'{s['metrics']['loss']:.6f}' for s in want_scst)} "
+          f"(single process), metrics max_abs_err {worst:.3e} over "
+          f"{compared} steps (tol {LOSS_TOL:g}); {flips} row-steps sampled "
+          f"differently, all at margins below {MARGIN:g}; ranks' weights "
+          f"bitwise equal: {same}", flush=True)
+    if not (worst <= LOSS_TOL and same and compared >= 1):
+        raise AssertionError("dp world 2 SCST disagrees with one process")
+
+    # decode
+    for label, beam in (("greedy", None), ("beam3", 3)):
+        got = ranks[0]["decode"][label]["captions"]
+        if ranks[1]["decode"][label]["captions"] != got:
+            raise AssertionError(f"dp world 2 {label}: the ranks' caption "
+                                 "lists differ")
+        n = caption_ties(model, rl_cfg, split, want_caps[label], got, beam,
+                         EXTRACT_BATCH)
+        print(f"dp world 2 decode {label}: {EXTRACT_IMAGES - n} of "
+              f"{EXTRACT_IMAGES} captions equal to one process's, the "
+              f"rest at ties", flush=True)
+
+    # launches, per rank
+    n_batches = -(-EXTRACT_IMAGES // EXTRACT_BATCH)
+    want = {"xe": LAUNCHES_PER_STEP * DP_STEPS,
+            "scst": LAUNCHES_PER_STEP * DP_STEPS}
+    by_rank = []
+    for rank, r in enumerate(ranks):
+        counts = {"dp_train": r["xe"]["launches"],
+                  "dp_scst": r["scst"]["launches"],
+                  "dp_decode": {
+                      k: sum(r["decode"][lb]["launches"][k]
+                             for lb in ("greedy", "beam3"))
+                      for k in ("fused_attention", "fused_attention_bwd")}}
+        by_rank.append(counts)
+        print(f"dp world 2 rank {rank}: launches {counts}; steps/s xe "
+              f"{DP_STEPS / r['xe']['seconds']:.3f}, scst "
+              f"{DP_STEPS / r['scst']['seconds']:.3f} (two ranks sharing "
+              f"one card over gloo: a functional check, not a scaling "
+              f"figure) [{card}]", flush=True)
+        if device == "cpu":
+            continue
+        for path in ("xe", "scst"):
+            c = counts["dp_train" if path == "xe" else "dp_scst"]
+            if any(v != want[path] for v in c.values()):
+                raise AssertionError(f"dp world 2 rank {rank} {path} "
+                                     f"launched {c}")
+        if counts["dp_decode"] != {"fused_attention": 2 * 3 * n_batches,
+                                   "fused_attention_bwd": 0}:
+            raise AssertionError(f"dp world 2 rank {rank} decode launched "
+                                 f"{counts['dp_decode']}")
+    return by_rank
+
+
+def stream_features(params, paths, device, mesh=None,
+                    batch: int = EXTRACT_BATCH):
+    """Features, positions and boxes of ``paths`` as the extraction stream
+    loads and pads them into batches of ``batch`` (bf16, the flagship's
+    slot contract), on one device or split over ``mesh``; and each
+    batch's padded canvases."""
+    import torch
+    from image_caption_tpu_torch.vision import loader
+    from image_caption_tpu_torch.vision.pipeline import (
+        extract_features_batch, extract_features_sharded)
+    out, batches = [], []
+    for start in range(0, len(paths), batch):
+        chunk = paths[start:start + batch]
+        c, mt, sz = loader.load_letterboxed_batch(chunk, 640, nthreads=8)
+        (c, mt, sz), real = padded_batches(c, mt, sz, batch)[0]
+        kw = dict(num_objects=36, max_obj=5)
+        if mesh is None:
+            f, p, bx = extract_features_batch(params, c, mt, sz,
+                                              device=device, **kw)
+        else:
+            f, p, bx = extract_features_sharded(mesh, params, c, mt, sz,
+                                                **kw)
+        out.append((f[:real].float().cpu(), p[:real].cpu(),
+                    bx[:real].cpu()))
+        batches.append(c)
+    return [torch.cat([o[i] for o in out]) for i in range(3)], batches
+
+
+def detector_score_gap(params, canvases, row: int, device):
+    """The largest difference of YOLOv5x's candidate scores for image
+    ``row`` of a padded batch between the whole batch and the half that
+    holds it, on one device, in bf16 and in float32: how far the
+    detector's rounding moves with the batch size alone."""
+    import torch
+    from image_caption_tpu_torch.vision import yolov5 as Y
+    x = torch.as_tensor(canvases, device=device).float() / 255.0
+    half = len(canvases) // 2
+    lo = (row // half) * half
+    gaps = []
+    for dtype in (torch.bfloat16, torch.float32):
+        scores = []
+        for images, r in ((x, row), (x[lo:lo + half], row - lo)):
+            raw = Y.yolov5_raw(params.yolo, images, dtype,
+                               focus_stem=Y.stem_is_focus(params.yolo))
+            scores.append(Y.decode_boxes_scores(params.yolo, raw)[1][r])
+        gaps.append((scores[0] - scores[1]).abs().max().item())
+    return gaps
+
+
+def drive_sharded_extract(params, cfg, card: str, device: str = "cuda"):
+    """``extract_features_sharded`` over a single-process mesh of
+    ``[cuda:0, cuda:0]`` (two replicas on one card), YOLOv5x + ResNet-101
+    in bf16, on 70 JPEGs in batches of 32 (16 a replica): bitwise equal to
+    ``extract_features_batch`` on the same halves (batches of 16, the
+    stream's padding lands on the same rows), with 4 launches of kernel #4
+    a batch a replica; against batches of 32 on one device, features of
+    slot 0 (the whole image) and of every image whose detections agree
+    within 3e-2 x max|ref|, and for each image whose detections differ the
+    detector's own bf16 score gap between the two batch sizes.  Then
+    ``caption_images`` over that mesh, greedy: its captions equal one
+    device's at batch 16, and at batch 32 on the images whose detections
+    agree, but at ties.  Returns the launches of the sharded extraction
+    and of the mesh captioning."""
+    import torch
+    from image_caption_tpu_torch.models.captioner import Captioner
+    from image_caption_tpu_torch.ops.attention import fused_attention
+    from image_caption_tpu_torch.parallel.mesh import make_mesh
+    from image_caption_tpu_torch.serve import caption_images
+    from image_caption_tpu_torch.vision import bottleneck as B
+    mesh = make_mesh([device, device])
+    half = EXTRACT_BATCH // 2
+    n_batches = -(-EXTRACT_IMAGES // EXTRACT_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_jpegs(tmp, EXTRACT_IMAGES, 11)
+        stream_features(params, paths[:EXTRACT_BATCH], device, mesh)  # set-up
+        whole, batches = stream_features(params, paths, device)
+        halves, _ = stream_features(params, paths, device, batch=half)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        got, _ = stream_features(params, paths, device, mesh)
+        seconds = time.perf_counter() - t0
+        extract_launches = {"fused_stage": B.fused_stage.launches,
+                            "fused_bottleneck": B.fused_bottleneck.launches}
+        exact = all(torch.equal(a, b) for a, b in zip(got, halves))
+        differ = [i for i in range(EXTRACT_IMAGES)
+                  if not (torch.equal(got[1][i], whole[1][i])
+                          and torch.equal(got[2][i], whole[2][i]))]
+        gaps = [detector_score_gap(params, batches[i // EXTRACT_BATCH],
+                                   i % EXTRACT_BATCH, device)
+                for i in differ]
+        keep = [slice(0, 1) if i in differ else slice(None)
+                for i in range(EXTRACT_IMAGES)]
+        err = max((got[0][i, s] - whole[0][i, s]).abs().max().item()
+                  for i, s in enumerate(keep))
+        ref = max(whole[0][i, s].abs().max().item()
+                  for i, s in enumerate(keep))
+        print(f"sharded extract: {EXTRACT_IMAGES} images over 2 replicas "
+              f"on one card in {seconds:.3f} s, launches "
+              f"{extract_launches} (want fused_stage 4 a batch a replica: "
+              f"{8 * n_batches}); bitwise equal to one device at batch "
+              f"{half}: {exact}; against batch {EXTRACT_BATCH}: detections "
+              f"equal on {EXTRACT_IMAGES - len(differ)} images, features "
+              f"max_abs_err {err:.3e} (max|ref| {ref:.3e}, tol 3e-2 x "
+              f"max|ref|) [{card}]", flush=True)
+        for i, (gap, gap_f32) in zip(differ, gaps):
+            print(f"sharded extract: image {i} detects otherwise at batch "
+                  f"{EXTRACT_BATCH} than at {half}: the detector's bf16 "
+                  f"candidate scores for it differ by up to {gap:.3e} "
+                  f"between the two batch sizes (float32: {gap_f32:.3e})",
+                  flush=True)
+        if not (exact and err <= 3e-2 * ref):
+            raise AssertionError(f"sharded extraction: bitwise {exact}, "
+                                 f"features differ by {err:.3e}")
+        if device != "cpu" and extract_launches != {
+                "fused_stage": 8 * n_batches, "fused_bottleneck": 0}:
+            raise AssertionError(f"sharded extraction launched "
+                                 f"{extract_launches}")
+
+        m = cfg.model
+        model = Captioner(m, device=device,
+                          generator=torch.Generator().manual_seed(0))
+        idx_to_word = vocabulary(m.num_vocab)
+
+        def run(mesh_, batch_size=EXTRACT_BATCH):
+            return caption_images(cfg, paths, model, idx_to_word,
+                                  extractor_params=params,
+                                  batch_size=batch_size,
+                                  max_obj=cfg.data.max_obj, device=device,
+                                  mesh=mesh_)
+        one = run(None)
+        one_half = run(None, half)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        sharded = run(mesh)
+        seconds = time.perf_counter() - t0
+        caption_launches = {"fused_attention": fused_attention.launches,
+                            "fused_stage": B.fused_stage.launches}
+    rows = [i for i in range(EXTRACT_IMAGES) if i not in differ]
+    split = type("Split", (), {
+        "features": whole[0][rows].numpy(),
+        "positions": whole[1][rows][..., :m.dim_positions].numpy()})
+    ties = caption_ties(model, cfg, split, [one[i] for i in rows],
+                        [sharded[i] for i in rows], None, EXTRACT_BATCH)
+    print(f"mesh caption: {EXTRACT_IMAGES} JPEGs over 2 replicas in "
+          f"{seconds:.3f} s, launches {caption_launches} (want 3 of #1 and "
+          f"4 of #4 a batch a replica); captions equal to one device's at "
+          f"batch {half}: {sharded == one_half}; at batch {EXTRACT_BATCH} "
+          f"on {len(rows) - ties} of {len(rows)} images with equal "
+          f"detections, the rest at ties [{card}]", flush=True)
+    if sharded != one_half:
+        raise AssertionError("mesh captions differ from one device's at "
+                             f"batch {half}")
+    if device != "cpu" and caption_launches != {
+            "fused_attention": 6 * n_batches, "fused_stage": 8 * n_batches}:
+        raise AssertionError(f"mesh caption launched {caption_launches}")
+    return extract_launches, caption_launches
+
+
+def drive_profile(cfg, card: str, device: str = "cuda"):
+    """``train --profile --epochs 1`` through ``main.main`` on a synthetic
+    dataset: the Chrome trace it writes, its device kernels and the
+    attention kernels among them; then ``train --debug-nans`` for one clean
+    epoch, and again on a copy of the dataset with a NaN in one image's
+    features, which must raise.  Returns the launches of the profiled
+    run."""
+    import shutil
+    from image_caption_tpu_torch.data.synthetic import \
+        generate_synthetic_dataset
+    from image_caption_tpu_torch.main import main as cli_main
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        vocab = generate_synthetic_dataset(data, feature_format="npy")
+        flags = ["--device", device, "--preset", cfg.name,
+                 "--set", f"model.num_vocab={len(vocab)}",
+                 "--set", "model.attention_dropout=0.0",
+                 "--data-path", data]
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        cli_main(flags + ["--output-path", os.path.join(tmp, "p"), "train",
+                          "--profile", "--epochs", "1"])
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        path = os.path.join(tmp, "p", "profile", "trace_rank0.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        ours = sum("fused_attention" in e.get("name", "") for e in kernels)
+        print(f"profile: train --profile, one epoch in {seconds:.2f} s, "
+              f"trace {os.path.getsize(path) / 1e6:.2f} MB with "
+              f"{len(events)} events, {len(kernels)} device kernels, "
+              f"{ours} of them attention kernels; launches {launches} "
+              f"[{card}]", flush=True)
+        if device != "cpu" and (not kernels or ours == 0):
+            raise AssertionError("the trace holds no device kernel of ours")
+        cli_main(flags + ["--output-path", os.path.join(tmp, "n"), "train",
+                          "--debug-nans", "--epochs", "1"])
+        bad = os.path.join(tmp, "bad")
+        shutil.copytree(data, bad)
+        feats_path = os.path.join(bad, "train", "train.features.npy")
+        feats = np.load(feats_path)
+        feats[1, 0, 0] = np.nan
+        np.save(feats_path, feats)
+        try:
+            cli_main([bad if f == data else f for f in flags]
+                     + ["--output-path", os.path.join(tmp, "b"), "train",
+                        "--debug-nans", "--epochs", "1"])
+        except FloatingPointError as e:
+            print(f"profile: train --debug-nans: a clean epoch, then on a "
+                  f"NaN feature: FloatingPointError({e})", flush=True)
+        else:
+            raise AssertionError("--debug-nans did not raise on a NaN")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2872,6 +3601,10 @@ def main() -> int:
                          fused_bottleneck=B.fused_bottleneck.launches)
     drive_scst_loop(rl, card)
     scst_against_cpu(rl, scst_weights, card)
+    dp1_launches, _, _ = drive_dp_world1(xe, card)
+    dp2_launches = drive_dp_world2(get_preset(XE_PRESET), flagship,
+                                   scst_weights, card)
+    profile_launches = drive_profile(xe, card)
 
     t0 = time.perf_counter()
     extractor = smoke_extractor(0, "cuda")
@@ -2881,6 +3614,8 @@ def main() -> int:
     extract_launches = drive_extract(extractor, flagship, card)
     caption_launches = drive_caption(extractor, flagship, card)
     check_extract_against_cpu(extractor, flagship, card)
+    sharded_launches, mesh_caption = drive_sharded_extract(extractor,
+                                                           flagship, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         data_path, features_launches, train_jpegs = drive_features(
@@ -2916,6 +3651,17 @@ def main() -> int:
                 "library_ms": row["library_ms"], "main_shape": main_shape,
                 "shapes": rows}
 
+    def dp(kernel):
+        """A kernel's launches on the data-parallel and profile paths: the
+        world-2 paths summed over both ranks."""
+        return {"dp_train": dp1_launches.get(kernel, 0),
+                **{f"dp2_{p[3:]}": sum(r[p].get(kernel, 0)
+                                       for r in dp2_launches)
+                   for p in ("dp_train", "dp_scst", "dp_decode")},
+                "profile_train": profile_launches.get(kernel, 0),
+                "sharded_extract": sharded_launches.get(kernel, 0),
+                "mesh_caption": mesh_caption.get(kernel, 0)}
+
     fwd_train = train_launches["fused_attention"]
     bneck_src = "image_caption_tpu_torch/csrc/fused_bottleneck.cu"
     kernels = [
@@ -2930,7 +3676,8 @@ def main() -> int:
                "frcnn_extract": 0,
                "frcnn_caption": frcnn_caption["fused_attention"],
                "frcnn_features": 0,
-               "frcnn_demo": frcnn_demo["fused_attention"]},
+               "frcnn_demo": frcnn_demo["fused_attention"],
+               **dp("fused_attention")},
               max_err, times, "a_encoder"),
         entry("fused_attention_bwd",
               "image_caption_tpu_torch/csrc/fused_attention_bwd.cu",
@@ -2939,7 +3686,7 @@ def main() -> int:
                "scst": scst_launches["fused_attention_bwd"], "extract": 0,
                "caption": 0, "features": 0, "roi": 0, "demo": 0,
                "frcnn_extract": 0, "frcnn_caption": 0, "frcnn_features": 0,
-               "frcnn_demo": 0},
+               "frcnn_demo": 0, **dp("fused_attention_bwd")},
               max_err_bwd, times_bwd, "a_encoder"),
         entry("fused_bottleneck", bneck_src,
               "image_caption_tpu/vision/pallas_bottleneck.py:43",
@@ -2952,7 +3699,7 @@ def main() -> int:
                "frcnn_extract": frcnn_extract["fused_bottleneck"],
                "frcnn_caption": 0,
                "frcnn_features": frcnn_features["fused_bottleneck"],
-               "frcnn_demo": 0},
+               "frcnn_demo": 0, **dp("fused_bottleneck")},
               max_err_bneck["fused_bottleneck"],
               times_bneck["fused_bottleneck"], "stage3_bfloat16"),
         entry("fused_stage", bneck_src,
@@ -2965,7 +3712,8 @@ def main() -> int:
                "frcnn_extract": frcnn_extract["fused_stage"],
                "frcnn_caption": frcnn_caption["fused_stage"],
                "frcnn_features": frcnn_features["fused_stage"],
-               "frcnn_demo": frcnn_demo["fused_stage"]},
+               "frcnn_demo": frcnn_demo["fused_stage"],
+               **dp("fused_stage")},
               max_err_bneck["fused_stage"], times_bneck["fused_stage"],
               "stage3_bfloat16"),
     ]
@@ -2978,4 +3726,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dp-worker"]:
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

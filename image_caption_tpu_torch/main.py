@@ -6,11 +6,19 @@ the preset and every config field are flags, as in the JAX package's
 ``main.py``.  The verbs are ``train``, ``evaluation``, ``demo``,
 ``caption`` and ``features``; they run on the card unless ``--device``
 says otherwise.
+
+``--distributed`` joins a multi-process run before anything else
+(``parallel.distributed.initialize``); ``train`` and ``evaluation`` then
+run data parallel, one process per card, and only rank 0 writes:
+
+    torchrun --nproc-per-node N -m image_caption_tpu_torch.main \
+        --distributed train
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -51,9 +59,25 @@ def _load_config(args) -> Config:
 
 
 def cmd_train(args) -> None:
+    """main.py:25-153.  ``--profile`` writes a Chrome trace of a few train
+    steps after the first (``utils.debug.trace``) under
+    ``{output_path}/profile``; ``--debug-nans`` raises on a non-finite
+    loss or gradient."""
     from .train.loop import train
-    train(_load_config(args), num_epochs=args.epochs,
-          resume=not args.no_resume, device=args.device)
+    from .utils.debug import enable_nan_debugging, trace
+    cfg = _load_config(args)
+    if args.debug_nans:
+        enable_nan_debugging(True)
+    run = contextlib.nullcontext()
+    if args.profile:
+        run = trace(os.path.join(cfg.data.output_path, "profile"))
+    try:
+        with run:
+            train(cfg, num_epochs=args.epochs, resume=not args.no_resume,
+                  device=args.device)
+    finally:
+        if args.debug_nans:
+            enable_nan_debugging(False)
 
 
 def _restore_model(cfg: Config, epoch: Optional[int], device):
@@ -74,18 +98,25 @@ def _restore_model(cfg: Config, epoch: Optional[int], device):
 
 def cmd_evaluation(args) -> None:
     """main.py:156-190: restore a checkpoint, decode a split (greedy, or
-    beam with ``--beam-size``), write its candidates and score them."""
+    beam with ``--beam-size``), write its candidates and score them.
+    Each device of the mesh decodes its rows of every batch: the ranks
+    under ``--distributed`` (rank 0 writes), else every local card without
+    ``--device``."""
     from .data.dataset import load_split
     from .data.vocab import invert_vocab
     from .metrics.evaluate import score_captions
+    from .parallel.mesh import make_mesh
     from .serve import decode_split
     from .train.logging import write_scores
-    from .utils.device import resolve_device
     from .utils.io import load_pickle, save_pickle
 
     cfg = _load_config(args)
     d = cfg.data
-    device = resolve_device(args.device)
+    # over the process group under --distributed, else over every local
+    # card (or --device alone), as the JAX package decodes over its mesh
+    mesh = make_mesh(None if args.device is None else [args.device],
+                     data=cfg.train.data_axis, model=cfg.train.model_axis)
+    device = mesh.devices[0]
     split = load_split(d.data_path, args.split, load_references=True,
                        streaming=d.stream_features)
     word_to_idx = split.word_to_idx or load_pickle(d.word_to_idx_path)
@@ -94,7 +125,9 @@ def cmd_evaluation(args) -> None:
     model, epoch = _restore_model(cfg, args.epoch, device)
     candidates = decode_split(model, cfg, split, cfg.train.batch_size,
                               idx_to_word, beam_size=args.beam_size,
-                              device=device)
+                              device=device, mesh=mesh)
+    if not mesh.is_main:
+        return
     save_pickle(candidates, os.path.join(
         d.output_path, "candidates",
         f"{args.split}.candidate.captions.pkl"))
@@ -174,16 +207,25 @@ def cmd_caption(args) -> None:
     (``serve.caption_images``).  The captioner comes from the port's
     ``{output_path}/model/train_state_N.pt`` (the model part only, so an
     ``RL_Transformer`` preset serves without an RL trainer) or, with
-    ``--checkpoint``, from a reference ``model_N.pt``."""
+    ``--checkpoint``, from a reference ``model_N.pt``.  Without
+    ``--device`` every local card serves: each batch splits over them
+    (YOLOv5, a ``--batch-size`` they divide), with the extractor and the
+    captioner replicated once per card."""
     from .data.vocab import invert_vocab
+    from .parallel import distributed
+    from .parallel.mesh import make_mesh
     from .serve import caption_images, caption_images_to_jsonl, list_images
-    from .utils.device import resolve_device
     from .utils.io import load_pickle
     from .utils.weights import load_reference_checkpoint
 
+    if distributed.is_initialized():
+        raise SystemExit("caption runs as one process over the local cards;"
+                         " launch it without --distributed")
     cfg = _load_config(args)
     d = cfg.data
-    device = resolve_device(args.device)
+    mesh = make_mesh(None if args.device is None else [args.device],
+                     data=cfg.train.data_axis, model=cfg.train.model_axis)
+    device = mesh.devices[0]
     paths = list(args.images or [])
     if args.image_dir:
         paths.extend(list_images(args.image_dir))
@@ -213,7 +255,7 @@ def cmd_caption(args) -> None:
             beam_size=args.beam_size, batch_size=args.batch_size,
             max_obj=args.max_obj if args.max_obj is not None else d.max_obj,
             feature_mode=d.feature_mode, skip_errors=args.skip_errors,
-            on_batch=write_batch, device=device,
+            on_batch=write_batch, device=device, mesh=mesh,
             progress=(lambda done, n: print(f"[caption] {done}/{n}",
                                             file=sys.stderr))
             if args.verbose else None)
@@ -244,12 +286,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-path", default=None)
     p.add_argument("--output-path", default=None)
     p.add_argument("--device", default=None,
-                   help="torch device; the card (cuda) when not given")
+                   help="torch device; the card (cuda) when not given, "
+                        "cuda:LOCAL_RANK under --distributed")
+    # multi-process wiring: handled before anything else runs
+    p.add_argument("--distributed", action="store_true",
+                   help="join a process group first (torchrun's "
+                        "environment, or the three flags below)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address, or an init-method URL such as "
+                        "file:///shared/rendezvous")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     sub = p.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train")
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--no-resume", action="store_true")
+    t.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler Chrome trace of train "
+                        "steps 2-6 under {output_path}/profile")
+    t.add_argument("--debug-nans", action="store_true",
+                   help="autograd anomaly mode; raise on a non-finite loss "
+                        "or gradient (slow)")
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluation")
@@ -316,7 +374,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    if not args.distributed:
+        args.fn(args)
+        return
+    from .parallel import distributed
+    distributed.initialize(args.coordinator, args.num_processes,
+                           args.process_id,
+                           backend="gloo" if args.device == "cpu" else None)
+    try:
+        args.fn(args)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

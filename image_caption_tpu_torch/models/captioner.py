@@ -32,6 +32,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import masks as M
 from ..ops.attention import dropout
+from ..parallel.mesh import global_mean
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.rng import split
 from . import layers as L
@@ -298,15 +299,17 @@ class Captioner(nn.Module):
 
 
 def cross_entropy_ignore_pad(logits: torch.Tensor, targets: torch.Tensor,
-                             pad_idx: int = 0) -> torch.Tensor:
+                             pad_idx: int = 0, mesh=None) -> torch.Tensor:
     """torch CrossEntropyLoss(ignore_index=pad, reduction='mean'): the sum
-    of per-token NLL over non-pad targets over the count of them."""
+    of per-token NLL over non-pad targets over the count of them.  With a
+    process-group ``mesh`` both sums run over every rank's rows
+    (``parallel.mesh.global_mean``), as one step over the global batch."""
     v = logits.shape[-1]
     logp = torch.log_softmax(logits.reshape(-1, v), dim=-1)
     tgt = targets.reshape(-1).long()
     nll = -logp.gather(1, tgt[:, None])[:, 0]
     keep = (tgt != pad_idx).to(logp.dtype)
-    return (nll * keep).sum() / keep.sum().clamp_min(1.0)
+    return global_mean((nll * keep).sum(), keep.sum(), mesh)
 
 
 def focal_loss_from_ce(ce_mean: torch.Tensor,
@@ -319,17 +322,20 @@ def focal_loss_from_ce(ce_mean: torch.Tensor,
 
 def xe_loss(model: Captioner, object_features, position_features,
             target_caption, *, generator: Optional[torch.Generator] = None,
-            deterministic: bool = True,
-            use_kernel: bool = False) -> Dict[str, torch.Tensor]:
+            deterministic: bool = True, use_kernel: bool = False,
+            mesh=None) -> Dict[str, torch.Tensor]:
     """XE or focal training loss (model.py:79-98), the counterpart of the
     JAX package's ``captioner_xe_loss``: the mean CE over non-pad targets,
-    or the focal loss on that mean when ``cfg.xe_loss == 'focal'``."""
+    or the focal loss on that mean when ``cfg.xe_loss == 'focal'``.  With
+    a process-group ``mesh`` the mean runs over every rank's rows and the
+    focal loss applies to that global mean; each rank's gradient is its
+    share of the global loss's."""
     cfg = model.cfg
     logits = model(object_features, position_features, target_caption,
                    generator=generator, deterministic=deterministic,
                    use_kernel=use_kernel)
     targets = torch.as_tensor(target_caption, device=model.device)[:, 1:]
-    ce = cross_entropy_ignore_pad(logits, targets, cfg.pad_idx)
+    ce = cross_entropy_ignore_pad(logits, targets, cfg.pad_idx, mesh)
     if cfg.xe_loss == "focal":
         return {"loss": focal_loss_from_ce(ce, cfg.focal_gamma)}
     return {"loss": ce}

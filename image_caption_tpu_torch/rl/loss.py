@@ -16,9 +16,11 @@ The counterpart of the JAX package's ``rl/loss.py``, reproducing
   * structure loss = -sum(logp[sample] * mask * score) / sum(mask);
   * total = (1 - w) * XE + w * structure, with the WRITE_LOG keys.
 
-The rewards are host-scored constants: on one GPU the scoring is a plain
-host call between the forward and the loss (``rl/step.py``), where the
-JAX package crosses to the host with ``jax.pure_callback``.
+The rewards are host-scored constants: the scoring is a plain host call
+between the forward and the loss (``rl/step.py``), where the JAX package
+crosses to the host with ``jax.pure_callback``.  Under data parallelism
+each rank holds its rows, and the loss and the mean reward are normalised
+over the global batch, as the JAX step computes them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..models.captioner import Captioner, cross_entropy_ignore_pad
+from ..parallel.mesh import global_mean
 from ..utils.rng import split
 
 Metrics = Dict[str, torch.Tensor]
@@ -62,11 +65,13 @@ def sample_from_logits(logits: torch.Tensor,
 
 def structure_loss(logprobs: torch.Tensor, sample_seq: torch.Tensor,
                    rewards: torch.Tensor, self_cider: torch.Tensor, *,
-                   entropy_weight: float,
-                   self_cider_weight: float) -> Metrics:
+                   entropy_weight: float, self_cider_weight: float,
+                   mesh=None) -> Metrics:
     """loss.py:121-155 over N samples an item: logprobs [B, T, V],
     sample_seq [B, N, T] (or [B, T]), rewards and self_cider [B, N] (or
-    [B]).  Returns the loss and the mean raw reward."""
+    [B]).  Returns the loss and the mean raw reward; with a process-group
+    ``mesh`` both are over every rank's rows (the loss divides by the
+    global ``sum(mask)``)."""
     if sample_seq.dim() == 2:
         sample_seq = sample_seq[:, None]
         rewards = rewards[:, None] if rewards.dim() == 1 else rewards
@@ -94,26 +99,30 @@ def structure_loss(logprobs: torch.Tensor, sample_seq: torch.Tensor,
     if self_cider_weight > 0:
         scores = scores + self_cider_weight * self_cider.to(logprobs.dtype)
 
-    loss = -(gathered * mask * scores[..., None]).sum() / mask.sum()
-    return {"loss": loss, "reward": reward_out.mean()}
+    loss = global_mean(-(gathered * mask * scores[..., None]).sum(),
+                       mask.sum(), mesh)
+    reward = global_mean(reward_out.sum(), reward_out.numel(), mesh)
+    return {"loss": loss, "reward": reward}
 
 
 def rl_loss_from_logits(logits: torch.Tensor, captions: torch.Tensor, cfg,
                         *, rewards: torch.Tensor, self_cider: torch.Tensor,
                         sample_seq: Optional[torch.Tensor] = None,
-                        sample_generator: Optional[torch.Generator] = None
-                        ) -> Tuple[torch.Tensor, Metrics]:
+                        sample_generator: Optional[torch.Generator] = None,
+                        mesh=None) -> Tuple[torch.Tensor, Metrics]:
     """The composite loss of ``cfg`` (a ``Config``: its ``rl`` and
     ``model.pad_idx``) from teacher-forced logits [B, T, V] and the
     captions [B, T + 1].  ``sample_seq`` are the sequences ``rewards`` and
     ``self_cider`` [B, N] were scored on; without it the sample is drawn
     again from these logits with ``sample_generator``.  The rewards are
-    constants: no gradient flows into them."""
+    constants: no gradient flows into them.  With a process-group ``mesh``
+    every term is normalised over the global batch (``structure_loss``,
+    ``cross_entropy_ignore_pad``), and the rows are this rank's."""
     target = captions[:, 1:].long()
     w = cfg.rl.structure_loss_weight
     zero = logits.new_zeros(())
-    lm_loss = (cross_entropy_ignore_pad(logits, target, cfg.model.pad_idx)
-               if w < 1 else zero)
+    lm_loss = (cross_entropy_ignore_pad(logits, target, cfg.model.pad_idx,
+                                        mesh) if w < 1 else zero)
     if w > 0:
         if sample_seq is None:
             sample_seq, logprobs = sample_from_logits(
@@ -126,7 +135,7 @@ def rl_loss_from_logits(logits: torch.Tensor, captions: torch.Tensor, cfg,
             torch.as_tensor(rewards, device=logits.device).detach(),
             torch.as_tensor(self_cider, device=logits.device).detach(),
             entropy_weight=cfg.rl.entropy_reward_weight,
-            self_cider_weight=cfg.rl.self_cider_reward_weight)
+            self_cider_weight=cfg.rl.self_cider_reward_weight, mesh=mesh)
         st_loss, reward = st["loss"], st["reward"]
     else:
         st_loss, reward = zero, zero

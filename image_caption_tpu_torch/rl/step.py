@@ -1,4 +1,4 @@
-"""Self-critical train and eval steps on one device.
+"""Self-critical train and eval steps, on one device or data parallel.
 
 The counterpart of the JAX package's ``rl/step.py`` (the two-phase
 sample -> host score -> update schedule).  A step makes ONE teacher-forced
@@ -15,6 +15,12 @@ The steps ask for the fused attention kernels (``use_kernel=True``), as
 ``train/step.py`` does: at ``model.attention_dropout=0.0``, and in the
 deterministic eval, kernels #1 and #2 carry attention (13 launches of each
 a train step, 13 of #1 an eval); at the presets' 0.1 the plain path runs.
+
+With a process-group ``mesh`` each rank samples, scores and updates its
+rows of the global batch; the loss is normalised over the global batch and
+the gradients are summed over the ranks (``train.step.apply_update``).
+The sample stream folds the rank in with the dropout stream (the caller's
+``seed``); the deterministic eval's categorical draws fold it into seed 0.
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ import numpy as np
 import torch
 
 from ..models.captioner import Captioner
-from ..train.state import TrainState, zero_pad_embedding_grad
-from ..train.step import Batch, step_generator
+from ..train.state import TrainState
+from ..train.step import Batch, apply_update, step_generator
+from ..utils.rng import fold_in, generator
 from .loss import (Metrics, rl_forward, rl_loss_from_logits,
                    sample_from_logits)
 
@@ -84,44 +91,44 @@ def rl_sample(state: TrainState, batch: Batch, cfg, *, seed: int,
 
 
 def rl_update(state: TrainState, sample: RLSample, rewards: np.ndarray,
-              self_cider: np.ndarray, cfg) -> Metrics:
+              self_cider: np.ndarray, cfg, mesh=None) -> Metrics:
     """The update of ``sample`` with its host-scored rewards: loss,
-    backward, the pad row's gradient zeroed, one Adam step.  Returns the
-    four metrics as device tensors, without waiting for them."""
+    backward, the gradients summed over the mesh's ranks, the pad row's
+    gradient zeroed, one Adam step.  Returns the four metrics as device
+    tensors, without waiting for them."""
     loss, metrics = rl_loss_from_logits(
         sample.logits, sample.batch[2], cfg,
         rewards=torch.from_numpy(np.asarray(rewards, np.float32)),
         self_cider=torch.from_numpy(np.asarray(self_cider, np.float32)),
-        sample_seq=sample.seq)
-    model = state.model
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    zero_pad_embedding_grad(model, model.cfg.pad_idx)
-    state.optimizer.step()
-    state.step += 1
+        sample_seq=sample.seq, mesh=mesh)
+    apply_update(state, loss, mesh)
     return {k: v.detach() for k, v in metrics.items()}
 
 
 def rl_train_step(state: TrainState, batch: Batch, cfg, *, seed: int,
-                  score: Scorer, use_kernel: bool = True) -> Metrics:
+                  score: Scorer, use_kernel: bool = True,
+                  mesh=None) -> Metrics:
     """One serial SCST update of ``state`` in place (core/models.py:
     184-195): sample, score on the host with ``score``, update."""
     sample = rl_sample(state, batch, cfg, seed=seed, use_kernel=use_kernel)
     rewards, self_cider = score(*sample.host())
-    return rl_update(state, sample, rewards, self_cider, cfg)
+    return rl_update(state, sample, rewards, self_cider, cfg, mesh)
 
 
 @torch.no_grad()
 def rl_eval_step(model: Captioner, cfg, batch: Batch, *, score: Scorer,
-                 use_kernel: bool = True) -> Metrics:
+                 use_kernel: bool = True, mesh=None) -> Metrics:
     """The deterministic RL metrics (no dropout; a categorical sample
-    draws from the fixed seed-0 generator)."""
+    draws from the fixed seed-0 generator, with the rank folded in past
+    rank 0)."""
     logits, _ = rl_forward(model, batch, None, True, use_kernel)
-    seq, _ = sample_from_logits(logits, None, cfg.rl.sample_mode,
+    gen = (generator(fold_in(0, mesh.offset), logits.device)
+           if mesh is not None and mesh.offset else None)
+    seq, _ = sample_from_logits(logits, gen, cfg.rl.sample_mode,
                                 cfg.rl.num_samples)
     rewards, self_cider = score(seq.cpu().numpy(), batch[2].cpu().numpy())
     return rl_loss_from_logits(
         logits, batch[2], cfg,
         rewards=torch.from_numpy(np.asarray(rewards, np.float32)),
         self_cider=torch.from_numpy(np.asarray(self_cider, np.float32)),
-        sample_seq=seq)[1]
+        sample_seq=seq, mesh=mesh)[1]

@@ -1,16 +1,24 @@
 """Caption serving: a split of region features, or image files.
 
   * ``decode_split``: the counterpart of the JAX package's
-    ``train/loop.py:decode_split`` on one GPU: batches of precomputed
-    object features [B, S, 2048] and positions [B, S, 84] go through the
-    encoder (with the fused attention kernel), the KV-cached greedy or beam
-    decode and ``decode_captions``.
+    ``train/loop.py:decode_split``: batches of precomputed object features
+    [B, S, 2048] and positions [B, S, 84] go through the encoder (with the
+    fused attention kernel), the KV-cached greedy or beam decode and
+    ``decode_captions``.
   * ``caption_images``: the counterpart of the JAX package's
-    ``serve.py:caption_images`` on one GPU: image files stream through the
-    host decode pool and the extraction (``vision/etl.py``: YOLOv5x, or
-    Faster R-CNN with ``data.image_model="FasterRCNN"``, then crops and
+    ``serve.py:caption_images``: image files stream through the host
+    decode pool and the extraction (``vision/etl.py``: YOLOv5x, or Faster
+    R-CNN with ``data.image_model="FasterRCNN"``, then crops and
     ResNet-101 with the fused bottleneck kernel) straight into the same
     decode, without touching disk.
+
+Both take a ``mesh`` (``parallel.mesh``) and then split each batch over
+its data axis, as the JAX package does; the eligibility rule is
+``decode_placement``'s.  They keep the CUDA kernels on that path: the JAX
+package bypasses its Pallas kernels on the mesh only because a Mosaic call
+has no SPMD partitioning rule, and here each device runs its own block
+through the same kernels.  The function computed is the same; only the
+route differs.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import json
 import os
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .config import Config
@@ -26,6 +35,7 @@ from .data.dataset import CocoSplit, ImageBatches
 from .data.vocab import decode_captions
 from .models.captioner import Captioner
 from .models.decoding import beam_score_mode, beam_search, greedy_decode
+from .parallel.mesh import Mesh, decode_placement, gather_rows
 from .utils.device import DeviceLike, resolve_device
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
@@ -42,19 +52,43 @@ def _decode(model: Captioner, cfg: Config, feats, poss,
                        use_kernel=use_kernel, device=device)
 
 
+def _decode_sharded(models: List[Captioner], place, cfg: Config, feats,
+                    poss, beam_size: Optional[int], use_kernel: bool,
+                    mesh: Mesh) -> np.ndarray:
+    """Each device's rows of a batch through its replica; every process's
+    tokens gathered, in row order, as host int64 [B, T]."""
+    blocks = [_decode(m, cfg, f, p, beam_size, use_kernel, m.device)
+              for m, f, p in zip(models, place(feats), place(poss))]
+    return gather_rows(mesh, np.concatenate([b.cpu().numpy()
+                                             for b in blocks]))
+
+
 def decode_split(model: Captioner, cfg: Config, split: CocoSplit,
                  batch_size: int, idx_to_word: Dict[int, str], *,
                  beam_size: Optional[int] = None,
-                 device: DeviceLike = None) -> List[str]:
+                 device: DeviceLike = None,
+                 mesh: Optional[Mesh] = None) -> List[str]:
     """Greedy (``beam_size`` None or 1) or beam decode of every image in a
     split -> caption strings indexed by image row (the
     ``{split}.candidate.captions.pkl`` contract, main.py:172-184).  Beam
     scores follow ``cfg.caption_model``.  Runs on CUDA when ``device`` is
-    None; the model must lie on that device."""
+    None; the model must lie on that device.
+
+    With a ``mesh`` whose data axis divides ``batch_size``, each device
+    decodes its rows of every batch: in one process through a replica of
+    the model per device; over a process group each rank through its
+    model, the tokens gathered on every rank (``gather_rows``), so every
+    rank returns the same list (callers write on the main one only)."""
+    models, place = decode_placement(mesh, model, batch_size)
     out: List[Optional[str]] = [None] * split.num_images
     for feats, poss, idxs, real in ImageBatches(split, batch_size):
-        tokens = _decode(model, cfg, feats, poss, beam_size, True, device)
-        strs = decode_captions(tokens[:real].cpu().numpy(), idx_to_word)
+        if place is None:
+            tokens = _decode(model, cfg, feats, poss, beam_size, True,
+                             device).cpu().numpy()
+        else:
+            tokens = _decode_sharded(models, place, cfg, feats, poss,
+                                     beam_size, True, mesh)
+        strs = decode_captions(tokens[:real], idx_to_word)
         for i, s in zip(idxs[:real], strs):
             out[int(i)] = s
     return [s if s is not None else "" for s in out]
@@ -81,7 +115,8 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
                    on_batch: Optional[Callable[[int, List[Optional[str]]],
                                                None]] = None,
                    progress: Optional[Callable[[int, int], None]] = None,
-                   device: DeviceLike = None) -> List[Optional[str]]:
+                   device: DeviceLike = None,
+                   mesh: Optional[Mesh] = None) -> List[Optional[str]]:
     """Caption every image, streaming in ``batch_size`` chunks; captions
     come back aligned with ``image_paths``.
 
@@ -93,12 +128,25 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
     ``skip_errors=True``: an unreadable image gets ``None`` instead of
     failing the run.  ``on_batch(start, captions)``
     streams each batch out; ``progress(done, n)`` reports.  Runs on CUDA
-    unless ``device`` says otherwise; the model must lie there."""
+    unless ``device`` says otherwise; the model must lie there.
+
+    ``mesh``: a single-process mesh of local devices.  On the YOLOv5 path
+    with a ``batch_size`` its data axis divides, extraction
+    (``extract_features_sharded``) and decode split each batch over the
+    devices, with the extractor and the captioner replicated once per
+    device (``parallel.mesh.replicate_cached``); otherwise, and on the
+    Faster R-CNN path, one device runs, as in the JAX package."""
     from .vision.etl import stream_extracted_batches
+    if mesh is not None and mesh.group is not None:
+        raise ValueError("caption_images shards over the local devices of "
+                         "one process; run it as a single process")
     device = resolve_device(device)
     m = cfg.model
     n = len(image_paths)
     captions: List[Optional[str]] = [None] * n
+    models, place = (model, None)
+    if cfg.data.image_model != "FasterRCNN":
+        models, place = decode_placement(mesh, model, batch_size)
     stream = stream_extracted_batches(
         image_paths, extractor_params=extractor_params,
         weights_dir=weights_dir, num_objects=m.num_objects, max_obj=max_obj,
@@ -106,14 +154,19 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
         image_model=cfg.data.image_model,
         rect_letterbox=cfg.data.rect_letterbox, feature_mode=feature_mode,
         skip_errors=skip_errors, use_kernel=use_kernel,
-        compute_dtype=compute_dtype, device=device)
+        compute_dtype=compute_dtype, device=device,
+        mesh=mesh if place is not None else None)
     for start, real, failed, feats, poss in stream:
         # the captioner reads its own position width (84 YOLOv5, 95 FRCNN)
-        tokens = _decode(model, cfg, feats.float(),
-                         poss[:, :, :m.dim_positions].float(), beam_size,
-                         use_kernel, device)
+        feats, poss = feats.float(), poss[:, :, :m.dim_positions].float()
+        if place is None:
+            tokens = _decode(model, cfg, feats, poss, beam_size, use_kernel,
+                             device).cpu().numpy()
+        else:
+            tokens = _decode_sharded(models, place, cfg, feats, poss,
+                                     beam_size, use_kernel, mesh)
         batch_caps: List[Optional[str]] = decode_captions(
-            tokens[:real].cpu().numpy(), idx_to_word)
+            tokens[:real], idx_to_word)
         for j in failed:
             batch_caps[j] = None
         captions[start:start + real] = batch_caps

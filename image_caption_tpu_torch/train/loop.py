@@ -1,4 +1,4 @@
-"""The training loop, ``main.py train``, on one device.
+"""The training loop, ``main.py train``, on one device or data parallel.
 
 The counterpart of the JAX package's ``train/loop.py``, reproducing the
 reference loop (``main.py:25-153``): per-``log_every`` loss lines on fixed
@@ -7,8 +7,15 @@ epoch the valid loss, the valid decode (``serve.decode_split``, with the
 fused attention kernel), the coco metrics, the scores file, TensorBoard and
 a checkpoint with resume from the latest.  ``make_trainer`` gives the XE
 or focal ``Trainer``, or the self-critical ``RLTrainer`` for
-``RL_Transformer``.  One GPU: the JAX package's ``data_axis``/``model_axis``
-are not used.
+``RL_Transformer``.
+
+Data parallelism (``train.data_axis``; ``parallel.mesh``): every process
+runs the loop in lockstep on the same global batches and steps on its own
+rows, one device each; the losses it reports are global.  Only the main
+process (rank 0) writes: log lines, TensorBoard, sample captions, the
+candidates pickle and the scores file; it saves the checkpoint behind a
+barrier, and every rank restores it.  ``train.model_axis`` above 1 (tensor
+parallelism) raises: it is the next slice of the port.
 """
 
 from __future__ import annotations
@@ -26,11 +33,13 @@ from ..data.prefetch import Prefetcher
 from ..data.vocab import decode_captions, invert_vocab
 from ..metrics.evaluate import is_scalar_score, score_captions
 from ..models.decoding import beam_score_mode, beam_search, greedy_decode
+from ..parallel.mesh import (Mesh, barrier, broadcast_params, gather_rows,
+                             make_mesh, shard_batch)
 from ..rl.rewards import RewardComputer
 from ..rl.step import (RLSample, rl_eval_step, rl_sample, rl_train_step,
                        rl_update)
 from ..serve import decode_split
-from ..utils.debug import StepTimer
+from ..utils.debug import StepTimer, annotate, trace_step
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.io import save_pickle
 from ..utils.rng import fold_in
@@ -44,20 +53,45 @@ class Trainer:
     """XE/focal trainer (the ``TRANSFORMER`` wrapper, core/models.py:81-135)
     on one device: the card unless ``device`` says otherwise.  The model's
     weights come from seed ``fold_in(seed, 0)`` and the dropout keys from
-    ``fold_in(seed, 1)``; ``seed`` defaults to ``cfg.train.seed``."""
+    ``fold_in(seed, 1)``; ``seed`` defaults to ``cfg.train.seed``.
 
-    def __init__(self, cfg: Config, *, device: DeviceLike = None,
-                 seed: Optional[int] = None):
+    ``mesh`` (``parallel.mesh.make_mesh``): data parallelism over a
+    process group, one device per process, which the trainer runs on.
+    Rank 0's weights are broadcast at construction; every host batch the
+    trainer is given is the global batch, of which it steps on this rank's
+    rows; rank ``r > 0`` draws its dropout from ``fold_in(key, r)``, so
+    rank 0 keeps the single-process stream."""
+
+    def __init__(self, cfg: Config, *, mesh: Optional[Mesh] = None,
+                 device: DeviceLike = None, seed: Optional[int] = None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if len(mesh.devices) != 1:
+                raise ValueError(
+                    "a trainer drives one device per process: launch one "
+                    "process per card (torchrun ... --distributed train)")
+            device = mesh.devices[0] if device is None else device
         self.device = resolve_device(device)
         seed = cfg.train.seed if seed is None else seed
         self.step_seed = fold_in(seed, 1)
+        if mesh is not None and mesh.offset:
+            self.step_seed = fold_in(self.step_seed, mesh.offset)
         self.state: TrainState = create_train_state(
             cfg, device=self.device, seed=fold_in(seed, 0))
+        broadcast_params(mesh, self.state.model)
+
+    def shard(self, batch):
+        """This rank's rows of a global host batch's (features, positions,
+        captions); all of them without a mesh."""
+        batch = tuple(batch[:3])
+        return batch if self.mesh is None else shard_batch(self.mesh,
+                                                           batch)[0]
 
     def to_device(self, batch):
-        """A host batch (numpy or tensors) onto the trainer's device."""
-        return to_device(batch, self.device)
+        """This rank's rows of a global host batch (numpy or tensors) on
+        the trainer's device."""
+        return to_device(self.shard(batch), self.device)
 
     # -- single-step API (MODEL.train_step / compute_loss parity) ---------
     def train_step(self, features, positions, captions) -> Dict[str, float]:
@@ -68,17 +102,20 @@ class Trainer:
     def train_step_device(self, batch) -> Dict[str, torch.Tensor]:
         """Step on a batch already on the device; returns the metrics as
         device tensors, without waiting for them."""
-        return train_step(self.state, batch, seed=self.step_seed)
+        return train_step(self.state, batch, seed=self.step_seed,
+                          mesh=self.mesh)
 
     def train_steps_device(self, batches) -> Dict[str, torch.Tensor]:
         """K updates over K device batches; metrics stacked [K] per key,
         equal to K ``train_step_device`` calls."""
-        return train_steps(self.state, batches, seed=self.step_seed)
+        return train_steps(self.state, batches, seed=self.step_seed,
+                           mesh=self.mesh)
 
     def compute_loss(self, features, positions, captions
                      ) -> Dict[str, float]:
         metrics = eval_step(self.state.model,
-                            self.to_device((features, positions, captions)))
+                            self.to_device((features, positions, captions)),
+                            mesh=self.mesh)
         return {k: float(v) for k, v in metrics.items()}
 
     def flush(self):
@@ -116,8 +153,9 @@ class Trainer:
 
 class RLTrainer(Trainer):
     """Self-critical trainer (``SelfCriticNetwork``, core/models.py:
-    138-211) on one device: the JAX package's two-phase schedule, sample ->
-    score on the host -> update (``rl/step.py``).
+    138-211): the JAX package's two-phase schedule, sample -> score on the
+    host -> update (``rl/step.py``), on one device or over a ``mesh`` as
+    ``Trainer`` is.
 
     ``rl.pipeline_depth`` 0 is the serial schedule.  Depth 1 pipelines it:
     the first ``train_step_device`` call samples its batch and returns
@@ -128,8 +166,9 @@ class RLTrainer(Trainer):
     trajectory; ``flush`` drains the pending update."""
 
     def __init__(self, cfg: Config, word_to_idx: Dict[str, int], *,
-                 device: DeviceLike = None, seed: Optional[int] = None):
-        super().__init__(cfg, device=device, seed=seed)
+                 mesh: Optional[Mesh] = None, device: DeviceLike = None,
+                 seed: Optional[int] = None):
+        super().__init__(cfg, mesh=mesh, device=device, seed=seed)
         # the frozen CIDEr df (loss.py:112-116, df='coco-val'): the table
         # next to the splits, else metrics.cider's own resolution
         df_path = os.path.join(cfg.data.data_path, "coco-val-df.p")
@@ -139,7 +178,20 @@ class RLTrainer(Trainer):
             bleu_reward_weight=cfg.rl.bleu_reward_weight,
             self_cider_reward_weight=cfg.rl.self_cider_reward_weight,
             cider_df=df_path if os.path.exists(df_path) else "coco-val")
-        if self.reward_computer.ciderD.df_fallback:
+        if mesh is not None and mesh.group is not None:
+            # the df mode picks _host_rewards' branch (own rows, or an
+            # all-gather): ranks that disagree would deadlock at the first
+            # step, so fail before it
+            flags = gather_rows(mesh, np.asarray(
+                [self.reward_computer.uses_frozen_df], np.int32))
+            if flags.min() != flags.max():
+                raise RuntimeError(
+                    f"frozen CIDEr df ({df_path}) exists on some ranks but "
+                    "not others: the reward-scoring mode must agree. "
+                    "Distribute coco-val-df.p to every host (or remove it "
+                    "everywhere).")
+        if (self.reward_computer.ciderD.df_fallback
+                and (mesh is None or mesh.is_main)):
             print("[rl] WARNING: frozen CIDEr df not found "
                   f"({df_path}); RL rewards fall back to per-batch corpus "
                   "df — a DIFFERENT reward scale than the reference "
@@ -150,7 +202,25 @@ class RLTrainer(Trainer):
 
     def _host_rewards(self, sample_seq: np.ndarray, captions: np.ndarray):
         """Score sampled sequences [B, N, T] against their captions on the
-        host -> ([B, N] rewards, [B, N] self-CIDEr)."""
+        host -> ([B, N] rewards, [B, N] self-CIDEr).
+
+        Over a process group the rows are this rank's.  With a frozen
+        CIDEr df (the production configuration, coco-val-df.p) a row's
+        reward depends on that row alone, so each rank scores its own
+        rows.  In corpus-df mode CIDEr's idf and reference length come from
+        the scored set itself, so the ranks all-gather their rows, every
+        rank scores the identical global corpus, and keeps its rows."""
+        mesh = self.mesh
+        if (mesh is None or mesh.group is None
+                or self.reward_computer.uses_frozen_df):
+            return self._score(sample_seq, captions)
+        rewards, self_cider = self._score(gather_rows(mesh, sample_seq),
+                                          gather_rows(mesh, captions))
+        b = sample_seq.shape[0]
+        rows = slice(mesh.offset * b, (mesh.offset + 1) * b)
+        return rewards[rows], self_cider[rows]
+
+    def _score(self, sample_seq: np.ndarray, captions: np.ndarray):
         b, n, t = sample_seq.shape
         flat = sample_seq.reshape(-1, t)
         target = np.repeat(captions[:, 1:], n, axis=0)
@@ -165,7 +235,7 @@ class RLTrainer(Trainer):
         if not self._pipeline:
             return rl_train_step(self.state, batch, self.cfg,
                                  seed=self.step_seed,
-                                 score=self._host_rewards)
+                                 score=self._host_rewards, mesh=self.mesh)
         metrics = self.flush()
         self._pending = rl_sample(self.state, batch, self.cfg,
                                   seed=self.step_seed)
@@ -187,7 +257,8 @@ class RLTrainer(Trainer):
             return None
         pending, self._pending = self._pending, None
         rewards, self_cider = self._host_rewards(*pending.host())
-        return rl_update(self.state, pending, rewards, self_cider, self.cfg)
+        return rl_update(self.state, pending, rewards, self_cider, self.cfg,
+                         self.mesh)
 
     def train_step(self, features, positions, captions) -> Dict[str, float]:
         """One update, drained: this batch's metrics under either
@@ -203,7 +274,7 @@ class RLTrainer(Trainer):
         metrics = rl_eval_step(self.state.model, self.cfg,
                                self.to_device((features, positions,
                                                captions)),
-                               score=self._host_rewards)
+                               score=self._host_rewards, mesh=self.mesh)
         return {k: float(v) for k, v in metrics.items()}
 
     @property
@@ -226,12 +297,20 @@ def make_trainer(cfg: Config, word_to_idx: Optional[Dict[str, int]] = None,
 
 def train(cfg: Config, *, num_epochs: Optional[int] = None,
           resume: bool = True, verbose: bool = True,
-          device: DeviceLike = None) -> TrainState:
+          device: DeviceLike = None,
+          mesh: Optional[Mesh] = None) -> TrainState:
     """Full training run (main.py:25-153 behaviour) on ``device`` (the card
-    when None)."""
+    when None).  ``mesh`` None makes one from ``train.data_axis`` and
+    ``train.model_axis``: over the process group when this process belongs
+    to one (``parallel.distributed.initialize``), else over ``device``
+    alone."""
     t = cfg.train
     d = cfg.data
     num_epochs = num_epochs or t.num_epochs
+    if mesh is None:
+        mesh = make_mesh([device], data=t.data_axis, model=t.model_axis)
+    is_main = mesh.is_main
+    verbose = verbose and is_main
 
     train_split = load_split(d.data_path, "train", verbose=verbose,
                              streaming=d.stream_features)
@@ -243,15 +322,22 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
         raise ValueError(f"{d.data_path}/train has no word_index.pkl")
     idx_to_word = invert_vocab(word_to_idx)
 
-    trainer = make_trainer(cfg, word_to_idx, device=device)
-    writer = TensorBoardWriter(os.path.join(d.output_path, "log"))
+    trainer = make_trainer(cfg, word_to_idx, mesh=mesh)
+    writer = TensorBoardWriter(os.path.join(d.output_path, "log"),
+                               enabled=is_main)
     ckpt = CheckpointManager(os.path.join(d.output_path, "model"),
                              keep=t.keep_checkpoints)
 
     start_epoch = 1
     last = ckpt.latest_epoch() if resume else None
+    seen = gather_rows(mesh, np.asarray([-1 if last is None else last]))
+    if seen.min() != seen.max():
+        raise RuntimeError(f"the ranks see different latest checkpoints "
+                           f"{seen.tolist()} under {ckpt.directory}: give "
+                           "every rank the same output path")
     if last is not None:
         trainer.state = ckpt.restore(last, trainer.state)
+        broadcast_params(mesh, trainer.state.model)
         start_epoch = last + 1
         if verbose:
             print(f"[train] resumed from epoch {last}")
@@ -271,10 +357,14 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
         prefetched = Prefetcher(train_batches.epoch(epoch),
                                 transform=trainer.to_device)
         for batch in prefetched:
-            trainer.train_step_device(batch)
+            with annotate("train_step"):
+                trainer.train_step_device(batch)
             timer.step()
+            trace_step()
             prev_it, global_it = global_it, global_it + 1
 
+            # every rank evaluates (the losses are collectives); the main
+            # one writes
             if global_it // t.log_every > prev_it // t.log_every:
                 m_train = trainer.compute_loss(*fixed_train)
                 m_valid = trainer.compute_loss(*fixed_valid)
@@ -288,40 +378,46 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
 
             if global_it // t.sample_every > prev_it // t.sample_every:
                 trainer.flush()       # the weights must be current
-                cap = trainer.generate_caption(
-                    fixed_train[0][:1], fixed_train[1][:1], idx_to_word)[0][0]
-                gts = decode_captions(fixed_train[2][:1], idx_to_word)
-                writer.write_text("sample", format_sample(cap, gts),
-                                  global_it)
-                if verbose:
-                    print(f"[sample it {global_it}] {cap}")
+                if is_main:           # no collective below
+                    cap = trainer.generate_caption(
+                        fixed_train[0][:1], fixed_train[1][:1],
+                        idx_to_word)[0][0]
+                    gts = decode_captions(fixed_train[2][:1], idx_to_word)
+                    writer.write_text("sample", format_sample(cap, gts),
+                                      global_it)
+                    if verbose:
+                        print(f"[sample it {global_it}] {cap}")
 
         # ---- per-epoch evaluation (main.py:104-149) ----
-        trainer.flush()               # drain the pipelined RL tail
-        train_loss = _epoch_loss(trainer, train_batches,
-                                 limit=len(valid_batches))
-        valid_loss = _epoch_loss(trainer, valid_batches)
-        for key in trainer.metric_keys:
-            writer.write_epoch(key, train_loss[key], valid_loss[key], epoch)
+        with annotate("epoch_eval"):
+            trainer.flush()           # drain the pipelined RL tail
+            train_loss = _epoch_loss(trainer, train_batches,
+                                     limit=len(valid_batches))
+            valid_loss = _epoch_loss(trainer, valid_batches)
+            for key in trainer.metric_keys:
+                writer.write_epoch(key, train_loss[key], valid_loss[key],
+                                   epoch)
+            candidates = decode_split(trainer.state.model, cfg, valid_split,
+                                      t.batch_size, idx_to_word,
+                                      device=trainer.device, mesh=mesh)
 
-        candidates = decode_split(trainer.state.model, cfg, valid_split,
-                                  t.batch_size, idx_to_word,
-                                  device=trainer.device)
-        save_pickle(candidates, os.path.join(
-            d.output_path, "candidates", "valid.candidate.captions.pkl"))
-
-        if valid_split.references is not None:
-            hypo = {i: [c] for i, c in enumerate(candidates)}
-            scores = score_captions(valid_split.references, hypo,
-                                    verbose=verbose)
-            write_scores(d.output_path, "valid", epoch, scores)
-            for name, value in scores.items():
-                if is_scalar_score(value):
-                    writer.write_scalar(f"metrics/valid_{name}", value,
-                                        epoch)
+        if is_main:
+            save_pickle(candidates, os.path.join(
+                d.output_path, "candidates", "valid.candidate.captions.pkl"))
+            if valid_split.references is not None:
+                hypo = {i: [c] for i, c in enumerate(candidates)}
+                scores = score_captions(valid_split.references, hypo,
+                                        verbose=verbose)
+                write_scores(d.output_path, "valid", epoch, scores)
+                for name, value in scores.items():
+                    if is_scalar_score(value):
+                        writer.write_scalar(f"metrics/valid_{name}", value,
+                                            epoch)
 
         if epoch % t.checkpoint_every_epochs == 0:
-            ckpt.save(epoch, trainer.state)
+            if is_main:
+                ckpt.save(epoch, trainer.state)
+            barrier(mesh)             # every rank may now restore it
         if verbose:
             sps = timer.steps_per_sec
             print(f"[epoch {epoch}] train_loss={train_loss['loss']:.4f} "

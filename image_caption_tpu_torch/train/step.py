@@ -1,4 +1,4 @@
-"""XE / focal train and eval steps on one device.
+"""XE / focal train and eval steps, on one device or data parallel.
 
 The counterpart of the JAX package's ``train/step.py``
 (``core/models.py:115-135`` semantics): loss, backward, the pad row of the
@@ -6,6 +6,13 @@ word embedding frozen, one Adam update.  Dropout of step ``s`` draws from a
 generator seeded from ``(seed, s)`` on the model's device, as the JAX step
 folds ``state.step`` into its rng.  ``train_steps`` runs K updates as a
 loop, where the JAX package scans.
+
+With a process-group ``mesh`` each rank steps on its rows of the global
+batch: the loss is the global one (``parallel.mesh.global_mean``), and the
+gradients are summed over the ranks, flat, before the pad row is
+zeroed and Adam steps, so every rank applies the same update and the
+ranks' weights stay bitwise equal.  The caller folds the rank into
+``seed`` (``Trainer`` does), so the ranks draw different dropout masks.
 
 The steps ask for the fused attention kernels (``use_kernel=True``, as
 ``serve.decode_split`` does), and ``sdp_attention``'s dispatch rule
@@ -24,6 +31,8 @@ import numpy as np
 import torch
 
 from ..models.captioner import Captioner, xe_loss
+from ..parallel.mesh import all_reduce_grads
+from ..utils.debug import check_finite
 from ..utils.rng import fold_in, generator
 from .state import TrainState, zero_pad_embedding_grad
 
@@ -49,8 +58,26 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return generator(fold_in(seed, step), device)
 
 
+def apply_update(state: TrainState, loss: torch.Tensor, mesh=None) -> None:
+    """Backward of ``loss``, the gradients summed over the mesh's ranks,
+    the pad row's gradient zeroed, one Adam step.  Under
+    ``utils.debug.enable_nan_debugging`` a non-finite loss or gradient
+    raises first."""
+    model = state.model
+    check_finite("loss", [loss], state.step)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    all_reduce_grads(mesh, model.parameters())
+    zero_pad_embedding_grad(model, model.cfg.pad_idx)
+    check_finite("gradient", (p.grad for p in model.parameters()
+                              if p.grad is not None), state.step)
+    state.optimizer.step()
+    state.step += 1
+
+
 def train_step(state: TrainState, batch: Batch, *, seed: int,
-               use_kernel: bool = True) -> Dict[str, torch.Tensor]:
+               use_kernel: bool = True,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """One XE/focal update of ``state`` in place (core/models.py:115-126).
     Returns the loss before the update, as a tensor on the device (reading
     it waits for the step).  The parameters' ``.grad`` keep this step's
@@ -58,26 +85,25 @@ def train_step(state: TrainState, batch: Batch, *, seed: int,
     model = state.model
     gen = step_generator(seed, state.step, model.device)
     loss = xe_loss(model, *batch, generator=gen, deterministic=False,
-                   use_kernel=use_kernel)["loss"]
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    zero_pad_embedding_grad(model, model.cfg.pad_idx)
-    state.optimizer.step()
-    state.step += 1
+                   use_kernel=use_kernel, mesh=mesh)["loss"]
+    apply_update(state, loss, mesh)
     return {"loss": loss.detach()}
 
 
 def train_steps(state: TrainState, batches: Sequence[Batch], *, seed: int,
-                use_kernel: bool = True) -> Dict[str, torch.Tensor]:
+                use_kernel: bool = True,
+                mesh=None) -> Dict[str, torch.Tensor]:
     """K updates, one per batch, equal to K ``train_step`` calls; the
     losses come back stacked [K]."""
-    losses = [train_step(state, b, seed=seed, use_kernel=use_kernel)["loss"]
-              for b in batches]
+    losses = [train_step(state, b, seed=seed, use_kernel=use_kernel,
+                         mesh=mesh)["loss"] for b in batches]
     return {"loss": torch.stack(losses)}
 
 
 @torch.no_grad()
-def eval_step(model: Captioner, batch: Batch, *,
-              use_kernel: bool = True) -> Dict[str, torch.Tensor]:
-    """Deterministic loss (core/models.py:128-135)."""
-    return xe_loss(model, *batch, deterministic=True, use_kernel=use_kernel)
+def eval_step(model: Captioner, batch: Batch, *, use_kernel: bool = True,
+              mesh=None) -> Dict[str, torch.Tensor]:
+    """Deterministic loss (core/models.py:128-135), over every rank's rows
+    with a process-group ``mesh``."""
+    return xe_loss(model, *batch, deterministic=True, use_kernel=use_kernel,
+                   mesh=mesh)

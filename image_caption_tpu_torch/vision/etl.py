@@ -36,13 +36,15 @@ import torch
 from ..config import Config
 from ..data.tokenizer import clean_caption, tokenize_caption
 from ..data.vocab import build_caption_vector, build_vocab
+from ..parallel.mesh import make_mesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.io import load_pickle, open_hkl, save_array, save_pickle
 from .loader import load_letterboxed_batch
 from .pipeline import (FRCNN_CANVAS, ExtractorParams, FrcnnExtractorParams,
                        extract_features_batch, extract_features_frcnn,
-                       extract_features_roi, load_extractor,
-                       load_frcnn_extractor, validate_feature_mode)
+                       extract_features_roi, extract_features_sharded,
+                       load_extractor, load_frcnn_extractor,
+                       validate_feature_mode)
 
 CANVAS = 640
 AnyExtractor = Union[ExtractorParams, FrcnnExtractorParams]
@@ -117,7 +119,8 @@ def stream_extracted_batches(
         rect_letterbox: bool = False, feature_mode: str = "crop",
         roi_trunk_size: int = 448, roi_detect_size: Optional[int] = 320,
         skip_errors: bool = False, use_kernel: bool = True,
-        compute_dtype=torch.bfloat16, device: DeviceLike = None
+        compute_dtype=torch.bfloat16, device: DeviceLike = None,
+        mesh=None
 ) -> Iterator[Tuple[int, int, List[int], torch.Tensor, torch.Tensor]]:
     """Yield ``(start, real, failed, feats, poss)`` per ``batch_size``
     chunk of ``image_paths``: ``real`` rows of the padded batch are images,
@@ -133,7 +136,9 @@ def stream_extracted_batches(
     ``compute_dtype`` do not apply), as the JAX package does.  Extractor
     weights load from ``weights_dir`` (random when absent) unless
     ``extractor_params`` (``FrcnnExtractorParams`` for Faster R-CNN) are
-    given."""
+    given.  ``mesh`` (YOLOv5; ``batch_size`` must divide its data axis)
+    splits each batch over its local devices with
+    ``extract_features_sharded``; the outputs lie on its first device."""
     validate_feature_mode(feature_mode, image_model,
                           roi_trunk_size=roi_trunk_size,
                           roi_detect_size=roi_detect_size)
@@ -178,14 +183,19 @@ def stream_extracted_batches(
                 num_objects=num_objects, canvas=canvas_size,
                 use_kernel=use_kernel, device=device)
         kw = dict(num_objects=num_objects, max_obj=max_obj,
-                  compute_dtype=compute_dtype, device=device)
+                  compute_dtype=compute_dtype)
         if feature_mode == "roi":
-            return extract_features_roi(
-                extractor_params, canvases, metas, sizes,
-                trunk_size=roi_trunk_size, detect_size=roi_detect_size,
-                **kw)
-        return extract_features_batch(extractor_params, canvases, metas,
-                                      sizes, use_kernel=use_kernel, **kw)
+            kw.update(trunk_size=roi_trunk_size, detect_size=roi_detect_size)
+        else:
+            kw.update(use_kernel=use_kernel)
+        if mesh is not None:
+            return extract_features_sharded(
+                mesh, extractor_params, canvases, metas, sizes,
+                feature_mode=feature_mode, **kw)
+        fn = (extract_features_roi if feature_mode == "roi"
+              else extract_features_batch)
+        return fn(extractor_params, canvases, metas, sizes, device=device,
+                  **kw)
 
     starts = list(range(0, len(image_paths), batch_size))
     try:
@@ -278,7 +288,7 @@ def _params_digest(params) -> Optional[str]:
 # kwargs that do not change the features: the weights enter as a digest,
 # and the batch size, device and ResNet route compute the same function
 _FINGERPRINT_EXEMPT = ("extractor_params", "batch_size", "device",
-                       "use_kernel")
+                       "use_kernel", "mesh")
 
 
 def extraction_fingerprint(image_paths: Sequence[str], kwargs: Dict) -> Dict:
@@ -417,6 +427,20 @@ def _feature_shape(path: str) -> Tuple[int, ...]:
 # The whole build
 # ---------------------------------------------------------------------------
 
+def extraction_mesh(image_model: str, device: torch.device,
+                    batch_size: int):
+    """The JAX ETL's rule for sharding extraction: YOLOv5, on the card
+    (``device`` without an index), more than one local card, a single
+    process and a batch the cards divide; then every local card is on
+    the data axis.  Else None."""
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if (image_model != "YOLOv5" or device.index is not None or n_cards < 2
+            or batch_size % n_cards or torch.distributed.is_initialized()):
+        return None
+    print(f"[etl] sharding extraction over {n_cards} cards")
+    return make_mesh()
+
+
 def run_etl(cfg: Config, *, coco_root: str,
             splits: Sequence[str] = ("train", "valid", "test"),
             batch_size: int = 128, weights_dir: Optional[str] = None,
@@ -436,7 +460,12 @@ def run_etl(cfg: Config, *, coco_root: str,
     ``{split}.positions.{feature_format}``: hickle (``hkl``, needs
     ``h5py``) as the reference writes, or ``npy``; the dataset loader
     reads either.  A split whose feature file exists with the rows and the
-    fingerprint of this run is not extracted again."""
+    fingerprint of this run is not extracted again.
+
+    With YOLOv5 on the card (``device`` None or ``"cuda"``), more than one
+    local card and a ``batch_size`` they divide, extraction splits each
+    batch over every card (``extract_features_sharded``), as the JAX
+    package shards it over every local device."""
     if feature_format not in ("hkl", "npy"):
         raise ValueError(f"feature_format is 'hkl' or 'npy', not "
                          f"{feature_format!r}")
@@ -536,6 +565,7 @@ def run_etl(cfg: Config, *, coco_root: str,
             print("[etl] valid: coco-val-df.p written")
         print(f"[etl] {split}: caption artifacts written")
 
+        mesh = extraction_mesh(d.image_model, device, batch_size)
         ex_kwargs = dict(
             extractor_params=extractor,
             num_objects=cfg.model.num_objects, max_obj=d.max_obj,
@@ -544,7 +574,8 @@ def run_etl(cfg: Config, *, coco_root: str,
             roi_trunk_size=d.roi_trunk_size,
             roi_detect_size=d.roi_detect_size,
             num_position_dims=cfg.model.dim_positions,
-            compute_dtype=torch.bfloat16, use_kernel=True, device=device)
+            compute_dtype=torch.bfloat16, use_kernel=True, device=device,
+            mesh=mesh)
         fp = extraction_fingerprint(list(file_names), ex_kwargs)
 
         feats_path = os.path.join(out_dir,

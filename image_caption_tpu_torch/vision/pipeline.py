@@ -27,6 +27,8 @@ in float32, with the reference's rows for that model:
 Everything runs on one device, the card unless ``device`` says otherwise;
 the parameters must lie there.  ``use_kernel=True`` sends ResNet-101's
 identity runs through the fused bottleneck kernel (kernel #4).
+``extract_features_sharded`` splits a batch over the local devices of a
+mesh, with a replica of the parameters on each.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models.decoding import topk_lowest_index
+from ..parallel.mesh import DATA_AXIS, replicate_cached
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tree import tree_map
 from .frcnn import NUM_CLASSES as FRCNN_CLASSES
@@ -390,6 +393,50 @@ def extract_features_roi(params: ExtractorParams, canvases, metas,
     feats_sel = rois.mean(dim=(2, 3))
     return _assemble_outputs(sel, feats_sel, num_objects=num_objects,
                              max_obj=max_obj, num_classes=num_classes)
+
+
+def replicate_extractor_params(mesh, params: ExtractorParams):
+    """One copy of the extractor's parameters per device of ``mesh``,
+    made once and reused (``parallel.mesh.replicate_cached``): the ETL's
+    hot loop calls ``extract_features_sharded`` per batch, and copying the
+    YOLOv5x + ResNet-101 weights on every call would dominate it."""
+    return replicate_cached(mesh, params)
+
+
+def extract_features_sharded(mesh, params: ExtractorParams, canvases, metas,
+                             orig_sizes, *, feature_mode: str = "crop",
+                             **kwargs) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """Data-parallel extraction over a single-process ``mesh`` of local
+    devices: the batch splits into contiguous row blocks, one per device,
+    each extracted by that device's replica of ``params``
+    (``extract_features_batch``, with kernel #4 on each, or
+    ``extract_features_roi`` by ``feature_mode``), without collectives.
+    The batch must divide by the data axis.  Accepts the keyword options
+    of those two functions but ``device``; the outputs come back
+    concatenated in row order on the mesh's first device."""
+    validate_feature_mode(feature_mode,
+                          roi_trunk_size=kwargs.get("trunk_size"),
+                          roi_detect_size=kwargs.get("detect_size"))
+    if mesh.group is not None:
+        raise ValueError("extract_features_sharded shards over the local "
+                         "devices of one process; run it as a single "
+                         "process")
+    b = canvases.shape[0]
+    ndata = mesh.shape[DATA_AXIS]
+    if b % ndata:
+        raise ValueError(f"batch {b} not divisible by data axis {ndata}")
+    kwargs.pop("device", None)
+    fn = extract_features_roi if feature_mode == "roi" \
+        else extract_features_batch
+    replicas = replicate_extractor_params(mesh, params)
+    outs = [fn(p, canvases[rows], metas[rows], orig_sizes[rows], device=d,
+               **kwargs)
+            for p, d, rows in zip(replicas, mesh.devices,
+                                  mesh.row_blocks(b))]
+    first = mesh.devices[0]
+    return tuple(torch.cat([o[i].to(first, non_blocking=True)
+                            for o in outs]) for i in range(3))
 
 
 # ---------------------------------------------------------------------------

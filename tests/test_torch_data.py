@@ -149,15 +149,20 @@ def test_prefetcher_raises_the_producer_error():
 
 
 def test_step_timer_leaves_out_the_first_step(monkeypatch):
-    clock = iter([5.0, 6.0, 8.0, 10.0])
+    clock = iter([1.5, 5.0, 6.0, 8.0, 10.0, 20.0, 21.0, 22.0])
     monkeypatch.setattr("image_caption_tpu_torch.utils.debug.time"
                         ".perf_counter", lambda: next(clock))
-    t = StepTimer()
-    assert t.steps_per_sec is None
+    t = StepTimer()                  # the clock starts at 1.5 s
+    assert t.steps_per_sec is None and t.compile_seconds is None
     t.step()                         # the first step ends at 5 s
     t.step()                         # 6
     t.step(2)                        # 8: a 2-step call
     assert t.steps_per_sec == 3 / (10.0 - 5.0)
+    assert t.compile_seconds == 5.0 - 1.5
+    t.reset()                        # 20: a new epoch starts the count
+    assert t.steps_per_sec is None and t.compile_seconds is None
+    t.step()                         # 21
+    assert t.compile_seconds == 1.0 and t.steps_per_sec is None
 
 
 def test_save_pickle_and_save_array_round_trip(tmp_path):

@@ -18,6 +18,8 @@ from image_caption_tpu_torch import config as TCFG
 from image_caption_tpu_torch.data.dataset import CocoSplit
 from image_caption_tpu_torch.models import decoding as TD
 from image_caption_tpu_torch.models.captioner import Captioner
+from image_caption_tpu_torch.parallel import distributed as TDIST
+from image_caption_tpu_torch.parallel import mesh as TMESH
 from image_caption_tpu_torch.main import main as cli_main
 from image_caption_tpu_torch.serve import caption_images, decode_split
 from image_caption_tpu_torch.vision import pipeline as TP
@@ -125,7 +127,8 @@ def _tiny_extractor():
     "Captioner", "greedy_decode", "beam_search", "decode_split",
     "caption_images", "stream_extracted_batches", "extract_features_batch",
     "init_extractor", "caption verb", "run_etl", "extract_features_roi",
-    "extract_single_image", "features verb", "demo verb"])
+    "extract_single_image", "features verb", "demo verb", "make_mesh",
+    "initialize", "extract_features_sharded"])
 def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda,
                                                 tmp_path):
     if entry in ("Captioner", "init_extractor"):
@@ -133,6 +136,12 @@ def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda,
             lambda m: TP.init_extractor()
         with pytest.raises(RuntimeError, match="CUDA"):
             make(tiny_cfg.model)
+        return
+    if entry == "initialize":
+        # NCCL on the card by default; gloo joins on the CPU when asked
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TDIST.initialize("localhost:1", 1, 0)
+        assert not TDIST.is_initialized()
         return
     if entry == "caption verb":
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -177,6 +186,12 @@ def test_entry_points_need_cuda_unless_told_cpu(entry, tiny_cfg, no_cuda,
             **kw),
         "extract_single_image": lambda **kw: TP.extract_single_image(
             _jpeg(tmp_path), num_objects=4, **kw),
+        "make_mesh": lambda **kw: TMESH.make_mesh(
+            [kw["device"]] if kw else None),
+        "extract_features_sharded": lambda **kw: TP.extract_features_sharded(
+            TMESH.make_mesh([kw["device"]] * 2 if kw else None), extractor,
+            np.concatenate([canvases] * 2), np.concatenate([metas] * 2),
+            np.concatenate([sizes] * 2), num_objects=4, crop_size=32),
         "run_etl": lambda **kw: run_etl(
             tiny_cfg.with_overrides(**{
                 "data.data_path": str(tmp_path / "data")}),
