@@ -15,17 +15,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
    one block's shared memory (30,000 keys; 300,000 query rows), the
    backward at the four training shapes, the ragged case and its other
    block layouts (the largest tiles one block takes, rows of 5 and 6
-   floats; fully masked rows give exactly zero dq and finite dk, dv);
+   floats; fully masked rows give exactly zero dq and finite dk, dv); both
+   also at the four training shapes with 16 heads, one rank's of a model
+   group of two;
 4. gradient check: ``torch.autograd.grad`` through
    ``sdp_attention(use_kernel=True)`` (the two kernels) and through the
    plain path on the card agree for q, k and v; two launches of each
-   attention kernel at each training shape in float32 are bitwise equal;
+   attention kernel at each training shape in float32, at 32 and at 16
+   heads, are bitwise equal;
 5. times: each kernel, its plain version and one PyTorch library call for
    the same function (the backward's: ``scaled_dot_product_attention``'s
    forward plus backward, minus its forward), by CUDA events (10 warm-up
    runs, median of 50), beside the least time the card could take; the
    forward at the serving and the decoder's training shapes, the backward
-   at the four training shapes;
+   at the four training shapes, each of these also at 16 heads;
 6. slice (serving): the flagship captioner at full width, random weights
    from ``torch.Generator`` seed 0, decodes a 70-image split greedily and
    with beam 3 through ``decode_split``; the kernel launch counts are read
@@ -40,7 +43,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    second ``train()`` call that resumes from that checkpoint;
 9. card vs CPU: the same weights with all dropout off, 3 train steps on the
    card (kernels) and on the CPU (plain path): step-1 gradients within 1e-4
-   norm-relative per tensor, the three losses within 2e-4;
+   norm-relative per tensor, the three losses within 2e-4; then scan
+   steps: ``train.scan_steps`` K=4 (``Trainer.shard_stacked`` and
+   ``train_steps_device``) against K=1 on 12 batches of phase 7's preset,
+   each twice (K=1, K=4, K=4, K=1) from the same weights: the parameters
+   bitwise equal (else the largest difference, which fails above 1e-6
+   norm-relative), 13 launches of each kernel a step, the steps/s of both,
+   one K=4 dispatch under the profiler (idle share);
 10. scst: the flagship RL preset at full width with attention dropout 0
     (residual dropout 0.3 stays on), batch 32, 12,000 words, random
     weights from seed 0, rewards from the native scorer over a frozen CIDEr
@@ -166,7 +175,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
     preset from phase 10's start with a frozen df (samples equal but at a
     top-2 margin below 1e-4, metrics 2e-4), ``decode_split`` of phase 6's
     split greedy and beam 3 (captions equal but at ties), launches per
-    rank; a functional check, not a scaling figure;
+    rank; a functional check, not a scaling figure; then tp world 2: the
+    same inputs and single-process references, two
+    ``chip_smoke.py tp-worker`` subprocesses as one model group
+    (``train.model_axis`` 2: 16 heads a rank through kernels #1 and #2,
+    the vocabulary split in two): losses 2e-4 and step-1 gradients in the
+    full layout 1e-4, every rank's SCST samples on all 32 rows, the
+    captions of the gathered replica, 13 + 13 launches a step a rank, the
+    XE state saved at model 2 restored at model 1 bitwise equal to the
+    ranks' gathered weights;
 29. profile: ``train --profile --epochs 1`` through ``main.main`` on the
     synthetic dataset writes a Chrome trace holding the attention
     kernels; ``train --debug-nans`` runs a clean epoch and raises
@@ -181,7 +198,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
     ``caption_images`` over that mesh: equal to one device's at batch 16,
     and at batch 32 on images with equal detections but at ties.
 
-It prints a JSON line of the kernels, the card's name and power limit, and
+It prints a JSON line of the kernels (their launches by path, the
+scanned and tensor-parallel paths among them), the card's name and power
+limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero and prints no result.
 """
@@ -207,6 +226,8 @@ TRAIN_STEPS = 20
 # fused attention calls per train step: 1 pair block + 2 encoder blocks +
 # 5 decoder self + 5 decoder cross
 LAUNCHES_PER_STEP = 13
+# the flagship's 32 heads on one rank of a model group of two
+TP_HEADS = 16
 # H100 SXM data-sheet peaks: HBM bytes/s; float32 FLOP/s off the tensor
 # cores (the attention kernels compute in float32 on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -342,7 +363,7 @@ def check_kernel(device) -> float:
     from image_caption_tpu_torch.ops.attention import (attention_reference,
                                                        fused_attention)
     worst_f32 = 0.0
-    for case in kernel_cases() + training_cases()[2:4]:
+    for case in kernel_cases() + training_cases()[2:4] + tp_cases():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, m, t = on(case, device, dtype)
             got = fused_attention(q, k, v, m, t)
@@ -372,12 +393,12 @@ def check_kernel(device) -> float:
     return worst_f32
 
 
-def training_cases(batch: int = 32):
+def training_cases(batch: int = 32, heads: int = 32):
     """Kernel #2's inputs at the XE preset's training shapes (batch 32, 37
     slots, 50 caption tokens, 32 heads of 8), each with an output gradient
     dO, and the ragged case.  Items 3 and 17 are all-zero images, whose rows
     are fully masked in the encoder, pair and cross attention."""
-    slots, tokens, heads, head_dim = 37, 50, 32, 8
+    slots, tokens, head_dim = 37, 50, 8
     rng = np.random.RandomState(5)
     pad = slot_pad(batch, slots, rng, zero_items=(3, 17))
     lengths = rng.randint(3, tokens, size=batch)
@@ -400,6 +421,13 @@ def training_cases(batch: int = 32):
         case["do"] = np.random.RandomState(20 + i).randn(
             b, h, lq, dh).astype(np.float32)
     return cases
+
+
+def tp_cases():
+    """The four training shapes at 16 heads: what one rank of a model
+    group of two runs (``parallel.tensor``), the same masks."""
+    return [dict(c, name=f"{c['name']}_h16")
+            for c in training_cases(heads=TP_HEADS)[:4]]
 
 
 def bwd_edge_cases():
@@ -433,7 +461,7 @@ def check_kernel_bwd(device) -> float:
     from image_caption_tpu_torch.ops.attention import (
         attention_bwd_reference, fused_attention_bwd)
     worst_f32 = 0.0
-    for case in training_cases() + bwd_edge_cases():
+    for case in training_cases() + bwd_edge_cases() + tp_cases():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, m, t = on(case, device, dtype)
             do = torch.from_numpy(case["do"]).to(device).to(dtype)
@@ -511,12 +539,13 @@ def check_gradients(device) -> float:
 
 def check_attention_determinism(device):
     """Two launches of kernel #1 and two of kernel #2 on the same float32
-    inputs at each training shape give the same bits: every sum runs in an
-    order fixed by the shape, with no atomics."""
+    inputs at each training shape, and at its 16-head shape, give the same
+    bits: every sum runs in an order fixed by the shape, with no
+    atomics."""
     import torch
     from image_caption_tpu_torch.ops.attention import (fused_attention,
                                                        fused_attention_bwd)
-    for case in training_cases()[:4]:
+    for case in training_cases()[:4] + tp_cases():
         q, k, v, m, t = on(case, device, torch.float32)
         do = torch.from_numpy(case["do"]).to(device)
         runs = [(fused_attention(q, k, v, m, t),
@@ -591,9 +620,10 @@ def time_kernel(card: str):
     from image_caption_tpu_torch.ops.attention import (attention_reference,
                                                        fused_attention)
     rows = {}
-    # the serving shapes, the decoder's training shapes, a larger batch
+    # the serving shapes, the decoder's training shapes, a larger batch,
+    # the training shapes at a tensor-parallel rank's 16 heads
     cases = kernel_cases()[:2] + training_cases()[2:4] + [
-        dict(kernel_cases(batch=128)[0], name="a_encoder_B128")]
+        dict(kernel_cases(batch=128)[0], name="a_encoder_B128")] + tp_cases()
     for case in cases:
         q, k, v, m, t = on(case, "cuda", torch.float32)
         boolmask = m != 0
@@ -636,17 +666,18 @@ def bound_bwd(case, elem_bytes: int):
 
 
 def time_kernel_bwd(card: str):
-    """Kernel #2 at the four training shapes in float32, and the encoder's
-    at batch 128: its device time and call time, the plain version's, and
-    the library yardstick, the backward of ``scaled_dot_product_attention``
-    (forward plus backward, minus forward; never called by the port)."""
+    """Kernel #2 at the four training shapes in float32, the encoder's at
+    batch 128, and the four at 16 heads: its device time and call time,
+    the plain version's, and the library yardstick, the backward of
+    ``scaled_dot_product_attention`` (forward plus backward, minus
+    forward; never called by the port)."""
     import torch
     import torch.nn.functional as F
     from image_caption_tpu_torch.ops.attention import (
         attention_bwd_reference, fused_attention_bwd)
     rows = {}
     big = dict(training_cases(batch=128)[0], name="a_encoder_B128")
-    for case in training_cases()[:4] + [big]:
+    for case in training_cases()[:4] + [big] + tp_cases():
         q, k, v, m, t = on(case, "cuda", torch.float32)
         do = torch.from_numpy(case["do"]).cuda()
         additive = torch.zeros(m.shape, device="cuda").masked_fill(
@@ -2873,11 +2904,13 @@ def zero_launch_counts():
 
 
 def params_digest(model) -> str:
-    """sha1 of every parameter's bytes, in order: equal digests are
-    bitwise-equal weights."""
+    """sha1 of every parameter's bytes in the full layout (gathered from
+    the shards under tensor parallelism, a collective then), in order:
+    equal digests are bitwise-equal weights."""
     import hashlib
+    from image_caption_tpu_torch.parallel.tensor import full_state_dict
     h = hashlib.sha1()
-    for p in model.parameters():
+    for p in full_state_dict(model).values():
         h.update(p.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -3015,15 +3048,21 @@ def dp_inputs(xe_cfg, rl_cfg, scst_weights, tmp: str):
                    "images": EXTRACT_IMAGES, "batch_size": EXTRACT_BATCH}}
 
 
-def dp_worker(rank: int, world: int, workdir: str) -> int:
+def dp_worker(rank: int, world: int, workdir: str, model: int = 1) -> int:
     """``python chip_smoke.py dp-worker RANK WORLD DIR``: one rank of the
     world-2 phase, on ``cuda:0`` over gloo, with every count and result
-    written to ``DIR/rank{RANK}.pt``."""
+    written to ``DIR/rank{RANK}.pt``; ``tp-worker`` runs it with a model
+    axis of ``world`` (tensor parallelism: gradients and weights gathered
+    in the full layout, the XE state saved as a checkpoint under
+    ``DIR/ckpt``)."""
     import torch
     from image_caption_tpu_torch.models.captioner import Captioner
     from image_caption_tpu_torch.parallel import distributed
     from image_caption_tpu_torch.parallel.mesh import make_mesh
+    from image_caption_tpu_torch.parallel.tensor import (full_state_dict,
+                                                         gather_full)
     from image_caption_tpu_torch.serve import decode_split
+    from image_caption_tpu_torch.train.checkpoint import CheckpointManager
     from image_caption_tpu_torch.train.loop import RLTrainer, Trainer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3034,30 +3073,38 @@ def dp_worker(rank: int, world: int, workdir: str) -> int:
     join_group(workdir, world, rank, "gloo")
     out = {}
     try:
-        mesh = make_mesh([device])
+        mesh = make_mesh([device], model=model)
         # XE: 3 steps on the global batch
         xe = Trainer(cfgs["xe"], mesh=mesh, seed=3)
-        xe.state.model.load_state_dict(inputs["xe"]["weights"])
+        xe.load_state_dict(inputs["xe"]["weights"])
         zero_launch_counts()
         losses, grads = [], None
         synchronize(device)
         t0 = time.perf_counter()
         for step in range(DP_STEPS):
             losses.append(xe.train_step(*inputs["xe"]["batch"])["loss"])
-            if step == 0 and rank == 0:
-                grads = {n: p.grad.cpu() for n, p in
-                         xe.state.model.named_parameters()}
+            if step == 0:
+                grads = {n: g.cpu() for n, g in gather_full(
+                    xe.state.model, {n: p.grad for n, p in
+                                     xe.state.model.named_parameters()})
+                         .items()}
         synchronize(device)
-        out["xe"] = {"losses": losses, "grads": grads,
-                     "seconds": time.perf_counter() - t0,
+        seconds = time.perf_counter() - t0
+        out["xe"] = {"losses": losses, "grads": grads if rank == 0 else None,
+                     "seconds": seconds,
                      "digest": params_digest(xe.state.model),
                      "launches": launch_counts()}
+        if model > 1:
+            CheckpointManager(os.path.join(workdir, "ckpt")).save(
+                1, xe.state, mesh)
+            out["xe"]["weights"] = {k: v.cpu() for k, v in
+                                    full_state_dict(xe.state.model).items()}
         del xe
         # SCST: 3 pipelined steps, frozen df, the samples kept
         words = vocabulary(cfgs["scst"].model.num_vocab)
         rl = RLTrainer(cfgs["scst"], {w: i for i, w in words.items()},
                        mesh=mesh, seed=0)
-        rl.state.model.load_state_dict(inputs["scst"]["weights"])
+        rl.load_state_dict(inputs["scst"]["weights"])
         score, samples = rl._host_rewards, []
 
         def kept(sample_seq, captions):
@@ -3168,102 +3215,104 @@ def caption_ties(model, cfg, split, want, got, beam, batch_size: int):
     return len(rows)
 
 
-def drive_dp_world2(xe_cfg, rl_cfg, scst_weights, card: str,
-                    device: str = "cuda"):
-    """Two ranks in two subprocesses on one card over gloo (NCCL refuses
-    two ranks on one device), global batch 32 (16 a rank), all dropout
-    off, against the single-process run in this process: 3 XE steps
-    (losses, step-1 gradients, the ranks' weights bitwise equal), 3
-    pipelined SCST steps of the RL preset with a frozen df (samples equal
-    but at a top-2 margin below MARGIN, losses), and ``decode_split`` of
-    the 70-image split greedy and beam 3.  A functional check on one card,
-    not a scaling figure.  Returns each rank's launches per path."""
-    import subprocess
-    import torch
+def world2_references(inputs, scst_weights, device: str):
+    """The single-process runs the world-2 phases are held against, on
+    this process's card: 3 XE steps (losses, step-1 gradients), 3 SCST
+    steps (``reference_scst``) and ``decode_split`` of the 70-image split
+    greedy and beam 3."""
     from image_caption_tpu_torch.models.captioner import Captioner
     from image_caption_tpu_torch.serve import decode_split
     from image_caption_tpu_torch.train.loop import Trainer
-    with tempfile.TemporaryDirectory() as tmp:
-        inputs = dp_inputs(xe_cfg, rl_cfg, scst_weights, tmp)
-        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
-        t0 = time.perf_counter()
-        procs = []
-        for r in range(DP_WORLD):
-            with open(os.path.join(tmp, f"rank{r}.log"), "w") as log:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "dp-worker",
-                     str(r), str(DP_WORLD), tmp],
-                    stdout=log, stderr=subprocess.STDOUT))
-        try:
-            cfgs = {k: v["cfg"] for k, v in inputs.items()}
-            plain = Trainer(cfgs["xe"], device=device, seed=3)
-            plain.state.model.load_state_dict(inputs["xe"]["weights"])
-            want_xe, want_grads = [], None
-            for step in range(DP_STEPS):
-                want_xe.append(plain.train_step(*inputs["xe"]["batch"])
-                               ["loss"])
-                if step == 0:
-                    want_grads = {n: p.grad.cpu() for n, p in
-                                  plain.state.model.named_parameters()}
-            del plain
-            want_scst = reference_scst(cfgs["scst"], scst_weights,
-                                       inputs["scst"]["batch"], device)
-            m = rl_cfg.model
-            model = Captioner(m, device=device)
-            model.load_state_dict(inputs["decode"]["weights"])
-            split = make_split(m, EXTRACT_IMAGES, seed=0)
-            want_caps = {label: decode_split(
-                model, rl_cfg, split, EXTRACT_BATCH, vocabulary(m.num_vocab),
-                beam_size=beam, device=device)
-                for label, beam in (("greedy", None), ("beam3", 3))}
-        finally:
-            for p in procs:
-                p.wait(timeout=900)
-        seconds = time.perf_counter() - t0
-        logs = []
-        for r, p in enumerate(procs):
-            with open(os.path.join(tmp, f"rank{r}.log")) as f:
-                logs.append(f.read())
-            if p.returncode != 0:
-                raise AssertionError(f"dp world 2 rank {r} exited "
-                                     f"{p.returncode}:\n{logs[r][-3000:]}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(DP_WORLD)]
-    print(f"dp world 2: two ranks on one card over gloo, both phases done "
-          f"in {seconds:.1f} s", flush=True)
+    cfgs = {k: v["cfg"] for k, v in inputs.items()}
+    plain = Trainer(cfgs["xe"], device=device, seed=3)
+    plain.state.model.load_state_dict(inputs["xe"]["weights"])
+    want_xe, want_grads = [], None
+    for step in range(DP_STEPS):
+        want_xe.append(plain.train_step(*inputs["xe"]["batch"])["loss"])
+        if step == 0:
+            want_grads = {n: p.grad.cpu() for n, p in
+                          plain.state.model.named_parameters()}
+    del plain
+    want_scst = reference_scst(cfgs["scst"], scst_weights,
+                               inputs["scst"]["batch"], device)
+    m = cfgs["decode"].model
+    model = Captioner(m, device=device)
+    model.load_state_dict(inputs["decode"]["weights"])
+    split = make_split(m, EXTRACT_IMAGES, seed=0)
+    want_caps = {label: decode_split(
+        model, cfgs["decode"], split, EXTRACT_BATCH, vocabulary(m.num_vocab),
+        beam_size=beam, device=device)
+        for label, beam in (("greedy", None), ("beam3", 3))}
+    return {"xe": want_xe, "grads": want_grads, "scst": want_scst,
+            "caps": want_caps, "model": model, "split": split}
 
+
+def start_world2(kind: str, tmp: str):
+    """Two ``chip_smoke.py kind`` ranks on this card over gloo, their
+    output under ``tmp``."""
+    procs = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), kind, str(r),
+                 str(DP_WORLD), tmp], stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish_world2(label: str, procs, tmp: str):
+    """Wait for the ranks; each one's results, or raise with its log."""
+    import torch
+    for p in procs:
+        p.wait(timeout=900)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                log = f.read()
+            raise AssertionError(f"{label} rank {r} exited {p.returncode}:"
+                                 f"\n{log[-3000:]}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_WORLD)]
+
+
+def check_world2(label: str, ranks, refs, rl_cfg, rows, card: str,
+                 device: str):
+    """The ranks of a world-2 phase against ``refs`` (one process): XE
+    losses and step-1 gradients (full layout), SCST samples (rank ``r``'s
+    are the reference's ``rows(r)``, equal but at a top-2 margin below
+    MARGIN) and metrics, the ranks' weights bitwise equal, decode's
+    captions equal but at ties; then each rank's launches.  Returns
+    them per rank."""
     # XE
     loss_err = max(abs(a - b) for r in ranks
-                   for a, b in zip(r["xe"]["losses"], want_xe))
-    grad_err = max(norm_rel(g, want_grads[n])
+                   for a, b in zip(r["xe"]["losses"], refs["xe"]))
+    grad_err = max(norm_rel(g, refs["grads"][n])
                    for n, g in ranks[0]["xe"]["grads"].items())
     same = ranks[0]["xe"]["digest"] == ranks[1]["xe"]["digest"]
-    print(f"dp world 2 xe: losses {' '.join(f'{x:.6f}' for x in want_xe)} "
-          f"(single process), max_abs_err {loss_err:.3e} (tol {LOSS_TOL:g});"
-          f" step-1 gradients norm-relative max {grad_err:.3e} (tol "
-          f"{GRAD_TOL:g}); ranks' weights bitwise equal after {DP_STEPS} "
-          f"steps: {same}", flush=True)
+    print(f"{label} xe: losses "
+          f"{' '.join(f'{x:.6f}' for x in refs['xe'])} (single process), "
+          f"max_abs_err {loss_err:.3e} (tol {LOSS_TOL:g}); step-1 gradients "
+          f"norm-relative max {grad_err:.3e} (tol {GRAD_TOL:g}); ranks' "
+          f"weights bitwise equal after {DP_STEPS} steps: {same}",
+          flush=True)
     if not (loss_err <= LOSS_TOL and grad_err <= GRAD_TOL and same):
-        raise AssertionError("dp world 2 XE disagrees with one process")
+        raise AssertionError(f"{label} XE disagrees with one process")
 
     # SCST
     if not all(r["scst"]["frozen_df"] for r in ranks):
-        raise AssertionError("dp world 2 scst: the frozen df was not used")
+        raise AssertionError(f"{label} scst: the frozen df was not used")
     flips, compared, worst = 0, 0, 0.0
-    b = rl_cfg.train.batch_size // DP_WORLD
-    for step, want in enumerate(want_scst):
+    for step, want in enumerate(refs["scst"]):
         differ = 0
         for rank, r in enumerate(ranks):
-            rows = slice(rank * b, (rank + 1) * b)
             got = r["scst"]["samples"][step][:, 0]
-            diff = got != want["samples"][rows, 0]
-            bad = diff & (want["margins"][rows] >= MARGIN)
+            diff = got != want["samples"][rows(rank), 0]
+            bad = diff & (want["margins"][rows(rank)] >= MARGIN)
             if bad.any():
                 i, t = np.argwhere(bad)[0]
                 raise AssertionError(
-                    f"dp world 2 scst step {step + 1}: rank {rank} sampled "
+                    f"{label} scst step {step + 1}: rank {rank} sampled "
                     f"({i}, {t}) differently at a margin of "
-                    f"{want['margins'][rows][i, t]:.3e}")
+                    f"{want['margins'][rows(rank)][i, t]:.3e}")
             differ += int(diff.any(axis=1).sum())
         flips += differ
         if flips:
@@ -3273,57 +3322,204 @@ def drive_dp_world2(xe_cfg, rl_cfg, scst_weights, card: str,
             for k, v in r["scst"]["metrics"][step].items():
                 worst = max(worst, abs(v - want["metrics"][k]))
     same = ranks[0]["scst"]["digest"] == ranks[1]["scst"]["digest"]
-    print(f"dp world 2 scst: losses "
-          f"{' '.join(f'{s['metrics']['loss']:.6f}' for s in want_scst)} "
+    print(f"{label} scst: losses "
+          f"{' '.join(f'{s['metrics']['loss']:.6f}' for s in refs['scst'])} "
           f"(single process), metrics max_abs_err {worst:.3e} over "
           f"{compared} steps (tol {LOSS_TOL:g}); {flips} row-steps sampled "
           f"differently, all at margins below {MARGIN:g}; ranks' weights "
           f"bitwise equal: {same}", flush=True)
     if not (worst <= LOSS_TOL and same and compared >= 1):
-        raise AssertionError("dp world 2 SCST disagrees with one process")
+        raise AssertionError(f"{label} SCST disagrees with one process")
 
     # decode
-    for label, beam in (("greedy", None), ("beam3", 3)):
-        got = ranks[0]["decode"][label]["captions"]
-        if ranks[1]["decode"][label]["captions"] != got:
-            raise AssertionError(f"dp world 2 {label}: the ranks' caption "
+    for name, beam in (("greedy", None), ("beam3", 3)):
+        got = ranks[0]["decode"][name]["captions"]
+        if ranks[1]["decode"][name]["captions"] != got:
+            raise AssertionError(f"{label} {name}: the ranks' caption "
                                  "lists differ")
-        n = caption_ties(model, rl_cfg, split, want_caps[label], got, beam,
-                         EXTRACT_BATCH)
-        print(f"dp world 2 decode {label}: {EXTRACT_IMAGES - n} of "
+        n = caption_ties(refs["model"], rl_cfg, refs["split"],
+                         refs["caps"][name], got, beam, EXTRACT_BATCH)
+        print(f"{label} decode {name}: {EXTRACT_IMAGES - n} of "
               f"{EXTRACT_IMAGES} captions equal to one process's, the "
               f"rest at ties", flush=True)
 
     # launches, per rank
     n_batches = -(-EXTRACT_IMAGES // EXTRACT_BATCH)
-    want = {"xe": LAUNCHES_PER_STEP * DP_STEPS,
-            "scst": LAUNCHES_PER_STEP * DP_STEPS}
+    want = LAUNCHES_PER_STEP * DP_STEPS
     by_rank = []
     for rank, r in enumerate(ranks):
-        counts = {"dp_train": r["xe"]["launches"],
-                  "dp_scst": r["scst"]["launches"],
-                  "dp_decode": {
+        counts = {"train": r["xe"]["launches"],
+                  "scst": r["scst"]["launches"],
+                  "decode": {
                       k: sum(r["decode"][lb]["launches"][k]
                              for lb in ("greedy", "beam3"))
                       for k in ("fused_attention", "fused_attention_bwd")}}
         by_rank.append(counts)
-        print(f"dp world 2 rank {rank}: launches {counts}; steps/s xe "
+        print(f"{label} rank {rank}: launches {counts}; steps/s xe "
               f"{DP_STEPS / r['xe']['seconds']:.3f}, scst "
               f"{DP_STEPS / r['scst']['seconds']:.3f} (two ranks sharing "
               f"one card over gloo: a functional check, not a scaling "
               f"figure) [{card}]", flush=True)
         if device == "cpu":
             continue
-        for path in ("xe", "scst"):
-            c = counts["dp_train" if path == "xe" else "dp_scst"]
-            if any(v != want[path] for v in c.values()):
-                raise AssertionError(f"dp world 2 rank {rank} {path} "
-                                     f"launched {c}")
-        if counts["dp_decode"] != {"fused_attention": 2 * 3 * n_batches,
-                                   "fused_attention_bwd": 0}:
-            raise AssertionError(f"dp world 2 rank {rank} decode launched "
-                                 f"{counts['dp_decode']}")
+        for path in ("train", "scst"):
+            if any(v != want for v in counts[path].values()):
+                raise AssertionError(f"{label} rank {rank} {path} "
+                                     f"launched {counts[path]}")
+        if counts["decode"] != {"fused_attention": 2 * 3 * n_batches,
+                                "fused_attention_bwd": 0}:
+            raise AssertionError(f"{label} rank {rank} decode launched "
+                                 f"{counts['decode']}")
     return by_rank
+
+
+def drive_dp_world2(xe_cfg, rl_cfg, scst_weights, card: str,
+                    device: str = "cuda"):
+    """Two ranks in two subprocesses on one card over gloo (NCCL refuses
+    two ranks on one device), global batch 32 (16 a rank), all dropout
+    off, against the single-process run in this process: 3 XE steps
+    (losses, step-1 gradients, the ranks' weights bitwise equal), 3
+    pipelined SCST steps of the RL preset with a frozen df (samples equal
+    but at a top-2 margin below MARGIN, losses), and ``decode_split`` of
+    the 70-image split greedy and beam 3.  A functional check on one card,
+    not a scaling figure.  Returns each rank's launches per path and the
+    single-process references, for ``drive_tp_world2``."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dp_inputs(xe_cfg, rl_cfg, scst_weights, tmp)
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        procs = start_world2("dp-worker", tmp)
+        try:
+            refs = world2_references(inputs, scst_weights, device)
+        finally:
+            ranks = finish_world2("dp world 2", procs, tmp)
+        seconds = time.perf_counter() - t0
+    print(f"dp world 2: two ranks on one card over gloo, both phases done "
+          f"in {seconds:.1f} s", flush=True)
+    b = rl_cfg.train.batch_size // DP_WORLD
+    by_rank = check_world2("dp world 2", ranks, refs, rl_cfg,
+                           lambda r: slice(r * b, (r + 1) * b), card, device)
+    return by_rank, refs
+
+
+def drive_tp_world2(xe_cfg, rl_cfg, scst_weights, refs, card: str,
+                    device: str = "cuda"):
+    """Tensor parallelism: two ranks (``chip_smoke.py tp-worker``) on one
+    card over gloo, a model group of two at the flagship's full width, so
+    kernels #1 and #2 run on 16 of its 32 heads a rank; the world-2
+    phase's inputs and its single-process references ``refs``: 3 XE steps
+    (losses 2e-4, step-1 gradients in the full layout 1e-4), 3 pipelined
+    argmax SCST steps (every rank samples every row), ``decode_split``
+    greedy and beam 3 on the gathered replica, and the XE state saved at
+    model 2 restored at model 1 bitwise equal to the ranks' gathered
+    weights.  Functional only: two ranks share one card.  Returns each
+    rank's launches per path."""
+    import torch
+    from image_caption_tpu_torch.train.checkpoint import CheckpointManager
+    from image_caption_tpu_torch.train.loop import Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dp_inputs(xe_cfg, rl_cfg, scst_weights, tmp)
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        ranks = finish_world2("tp world 2", start_world2("tp-worker", tmp),
+                              tmp)
+        seconds = time.perf_counter() - t0
+        one = Trainer(inputs["xe"]["cfg"], device=device, seed=5)
+        one.restore(CheckpointManager(os.path.join(tmp, "ckpt")), 1)
+        restored = one.state.model.state_dict()
+    gathered = ranks[0]["xe"]["weights"]
+    bitwise = all(torch.equal(restored[k].cpu(), gathered[k])
+                  for k in gathered) and one.state.step == DP_STEPS
+    print(f"tp world 2: a model group of two on one card over gloo, "
+          f"{TP_HEADS} heads a rank, done in {seconds:.1f} s; the XE state "
+          f"saved at model 2 restored at model 1 bitwise equal to the "
+          f"gathered weights: {bitwise}", flush=True)
+    if not bitwise:
+        raise AssertionError("tp world 2: the checkpoint does not restore "
+                             "the gathered weights at model 1")
+    return check_world2("tp world 2", ranks, refs, rl_cfg,
+                        lambda r: slice(None), card, device)
+
+
+SCAN_K, SCAN_BATCHES = 4, 12
+
+
+def drive_scan_steps(cfg, card: str, device: str = "cuda"):
+    """``train.scan_steps``: 12 batches at K=4 (three stacked dispatches
+    through ``shard_stacked`` and ``train_steps_device``) and at K=1, each
+    twice in the order K=1, K=4, K=4, K=1, from the same weights and
+    dropout keys: the parameters bitwise equal (else the largest
+    norm-relative difference, which fails above 1e-6), 13 + 13 launches a
+    step, the steps/s of both, and one K=4 dispatch under the profiler
+    for the device's idle share.  Returns the first K=4 run's
+    launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from image_caption_tpu_torch.train.loop import Trainer
+    m = cfg.model
+    batches = [train_batch(m, cfg.train.batch_size, seed=30 + i)
+               for i in range(SCAN_BATCHES)]
+
+    def run(k):
+        trainer = Trainer(cfg.with_overrides(**{"train.scan_steps": k}),
+                          device=device, seed=0)
+        synchronize(device)
+        t0 = time.perf_counter()
+        for i in range(0, SCAN_BATCHES, k):
+            if k == 1:
+                trainer.train_step_device(trainer.to_device(batches[i]))
+            else:
+                trainer.train_steps_device(
+                    trainer.shard_stacked(batches[i:i + k]))
+        synchronize(device)
+        rate = SCAN_BATCHES / (time.perf_counter() - t0)
+        return trainer, rate
+
+    one, rate1 = run(1)
+    zero_launch_counts()
+    scan, rate4 = run(SCAN_K)
+    launches = launch_counts()
+    _, rate4b = run(SCAN_K)
+    _, rate1b = run(1)
+    a, b = one.state.model.state_dict(), scan.state.model.state_dict()
+    bitwise = all(torch.equal(a[k], b[k]) for k in a)
+    worst = max(norm_rel(b[k].float(), a[k].float()) for k in a)
+    print(f"scan steps: {SCAN_BATCHES} batches at K={SCAN_K} against K=1 "
+          f"from the same weights: parameters bitwise equal {bitwise} "
+          f"(norm-relative max {worst:.3e}, tol 1e-6); launches {launches}, "
+          f"want {LAUNCHES_PER_STEP} x {SCAN_BATCHES} each", flush=True)
+    if not worst <= 1e-6:
+        raise AssertionError(f"scan steps: K={SCAN_K} differs from K=1 by "
+                             f"{worst:.3e}")
+    want = LAUNCHES_PER_STEP * SCAN_BATCHES
+    if device != "cpu" and any(n != want for n in launches.values()):
+        raise AssertionError(f"scan steps launched {launches}")
+    print(f"scan steps: steps/s over {SCAN_BATCHES} steps at batch "
+          f"{cfg.train.batch_size}, in the order K=1, K={SCAN_K}, "
+          f"K={SCAN_K}, K=1: {rate1:.3f}, {rate4:.3f}, {rate4b:.3f}, "
+          f"{rate1b:.3f}; K={SCAN_K} / K=1 "
+          f"{(rate4 + rate4b) / (rate1 + rate1b):.4f} [{card}]", flush=True)
+    if device == "cpu":
+        return launches
+    stacked = scan.shard_stacked(batches[:SCAN_K])
+    synchronize(device)
+    t0 = time.perf_counter()
+    scan.train_steps_device(stacked)
+    synchronize(device)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan.train_steps_device(stacked)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total
+                  for e in device_kernels(prof)) / 1e3
+    print(f"scan steps: one K={SCAN_K} dispatch {wall_ms:.2f} ms on the host "
+          f"clock, device busy {busy_ms:.2f} ms, idle share "
+          + (f"{1 - busy_ms / wall_ms:.4f}" if busy_ms > 0 else
+             "not measured (the profiler saw no device time)")
+          + f" [{card}]", flush=True)
+    return launches
 
 
 def stream_features(params, paths, device, mesh=None,
@@ -3594,6 +3790,7 @@ def main() -> int:
     train_launches, _ = drive_train(xe, card)
     drive_train_loop(xe, card)
     train_against_cpu(xe, card)
+    scan_launches = drive_scan_steps(xe, card)
     rl = flagship.with_overrides(**{"model.attention_dropout": 0.0})
     B.fused_stage.launches = B.fused_bottleneck.launches = 0
     scst_launches, scst_weights = drive_scst(rl, card)
@@ -3602,8 +3799,11 @@ def main() -> int:
     drive_scst_loop(rl, card)
     scst_against_cpu(rl, scst_weights, card)
     dp1_launches, _, _ = drive_dp_world1(xe, card)
-    dp2_launches = drive_dp_world2(get_preset(XE_PRESET), flagship,
-                                   scst_weights, card)
+    dp2_launches, world2_refs = drive_dp_world2(
+        get_preset(XE_PRESET), flagship, scst_weights, card)
+    tp2_launches = drive_tp_world2(get_preset(XE_PRESET), flagship,
+                                   scst_weights, world2_refs, card)
+    del world2_refs
     profile_launches = drive_profile(xe, card)
 
     t0 = time.perf_counter()
@@ -3652,12 +3852,14 @@ def main() -> int:
                 "shapes": rows}
 
     def dp(kernel):
-        """A kernel's launches on the data-parallel and profile paths: the
-        world-2 paths summed over both ranks."""
-        return {"dp_train": dp1_launches.get(kernel, 0),
-                **{f"dp2_{p[3:]}": sum(r[p].get(kernel, 0)
-                                       for r in dp2_launches)
-                   for p in ("dp_train", "dp_scst", "dp_decode")},
+        """A kernel's launches on the scanned, data- and tensor-parallel
+        and profile paths: the world-2 paths summed over both ranks."""
+        return {"scan_train": scan_launches.get(kernel, 0),
+                "dp_train": dp1_launches.get(kernel, 0),
+                **{f"{w}2_{p}": sum(r[p].get(kernel, 0) for r in ranks)
+                   for w, ranks in (("dp", dp2_launches),
+                                    ("tp", tp2_launches))
+                   for p in ("train", "scst", "decode")},
                 "profile_train": profile_launches.get(kernel, 0),
                 "sharded_extract": sharded_launches.get(kernel, 0),
                 "mesh_caption": mesh_caption.get(kernel, 0)}
@@ -3726,6 +3928,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["dp-worker"]:
-        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] in (["dp-worker"], ["tp-worker"]):
+        world = int(sys.argv[3])
+        sys.exit(dp_worker(int(sys.argv[2]), world, sys.argv[4],
+                           model=world if sys.argv[1] == "tp-worker" else 1))
     sys.exit(main())

@@ -4,8 +4,9 @@ while the loop runs the current step.
 The reference's only host parallelism is torch DataLoader workers
 (``features.py:94-97``).  Here one thread keeps a small queue of ready
 batches ahead of the loop; what overlaps with the step is the batch
-assembly on the host.  Its ``transform`` (the trainer's ``to_device``)
-also issues the host-to-device copies, but from pageable memory on the
+assembly on the host.  Its ``transform`` (the trainer's ``to_device``, or
+``shard_stacked`` for a chunk of ``train.scan_steps`` batches) also
+issues the host-to-device copies, but from pageable memory on the
 default stream, so those do not overlap the step on the card.
 """
 

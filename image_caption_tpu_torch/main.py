@@ -13,6 +13,11 @@ run data parallel, one process per card, and only rank 0 writes:
 
     torchrun --nproc-per-node N -m image_caption_tpu_torch.main \
         --distributed train
+
+``--set train.model_axis=K`` shards the model over K of those processes
+(tensor parallelism, ``parallel.tensor``; N a multiple of K); without
+``--distributed`` it raises, naming that launch.  With ``--device cpu``
+the group runs over gloo.
 """
 
 from __future__ import annotations

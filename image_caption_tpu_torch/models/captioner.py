@@ -20,6 +20,9 @@ Reference quirks kept, each behind its config flag (see the JAX package's
 ``Captioner.forward`` is the differentiable teacher-forced forward of
 training, with dropout at the config's rates when a generator is given;
 ``Captioner.logits`` is its deterministic, gradient-free form for serving.
+Under tensor parallelism (``parallel.tensor.shard_model``) the forward
+gives this rank's vocabulary slice of the logits, and the losses here
+read it through ``vocab_parallel_cross_entropy``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..config import ModelConfig
 from ..ops import masks as M
 from ..ops.attention import dropout
 from ..parallel.mesh import global_mean
+from ..parallel.tensor import ModelShard, vocab_parallel_cross_entropy
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.rng import split
 from . import layers as L
@@ -254,6 +258,8 @@ class Captioner(nn.Module):
         self.classifer = L.Linear(cfg.decode_input_size, cfg.num_vocab,
                                   bias=True, generator=generator,
                                   kernel_init=L.normal_fan_sum)
+        # this rank's place in its model group once sharded
+        self.tp: Optional[ModelShard] = None
         self.to(device)
 
     @property
@@ -265,10 +271,11 @@ class Captioner(nn.Module):
                 deterministic: bool = True,
                 use_kernel: bool = False) -> torch.Tensor:
         """Teacher-forced forward: f32 logits over ``target[:, :-1]``
-        (model.py:79-93), [B, T-1, V], differentiable.  Dropout runs at the
-        config's rates when ``generator`` (on the model's device) is given
-        and ``deterministic`` is False; the counterpart of the JAX
-        package's ``captioner_logits``."""
+        (model.py:79-93), [B, T-1, V] (V/k, this rank's slice of the
+        vocabulary, under tensor parallelism), differentiable.  Dropout
+        runs at the config's rates when ``generator`` (on the model's
+        device) is given and ``deterministic`` is False; the counterpart of
+        the JAX package's ``captioner_logits``."""
         dev = self.device
         object_features = torch.as_tensor(object_features, device=dev)
         position_features = torch.as_tensor(position_features, device=dev)
@@ -299,16 +306,23 @@ class Captioner(nn.Module):
 
 
 def cross_entropy_ignore_pad(logits: torch.Tensor, targets: torch.Tensor,
-                             pad_idx: int = 0, mesh=None) -> torch.Tensor:
+                             pad_idx: int = 0, mesh=None,
+                             shard: Optional[ModelShard] = None
+                             ) -> torch.Tensor:
     """torch CrossEntropyLoss(ignore_index=pad, reduction='mean'): the sum
     of per-token NLL over non-pad targets over the count of them.  With a
-    process-group ``mesh`` both sums run over every rank's rows
-    (``parallel.mesh.global_mean``), as one step over the global batch."""
+    process-group ``mesh`` both sums run over every data index's rows
+    (``parallel.mesh.global_mean``), as one step over the global batch.
+    With a ``shard`` the logits are its vocabulary slice
+    (``vocab_parallel_cross_entropy``)."""
     v = logits.shape[-1]
-    logp = torch.log_softmax(logits.reshape(-1, v), dim=-1)
     tgt = targets.reshape(-1).long()
-    nll = -logp.gather(1, tgt[:, None])[:, 0]
-    keep = (tgt != pad_idx).to(logp.dtype)
+    if shard is None:
+        logp = torch.log_softmax(logits.reshape(-1, v), dim=-1)
+        nll = -logp.gather(1, tgt[:, None])[:, 0]
+    else:
+        nll = vocab_parallel_cross_entropy(logits.reshape(-1, v), tgt, shard)
+    keep = (tgt != pad_idx).to(nll.dtype)
     return global_mean((nll * keep).sum(), keep.sum(), mesh)
 
 
@@ -327,15 +341,17 @@ def xe_loss(model: Captioner, object_features, position_features,
     """XE or focal training loss (model.py:79-98), the counterpart of the
     JAX package's ``captioner_xe_loss``: the mean CE over non-pad targets,
     or the focal loss on that mean when ``cfg.xe_loss == 'focal'``.  With
-    a process-group ``mesh`` the mean runs over every rank's rows and the
-    focal loss applies to that global mean; each rank's gradient is its
-    share of the global loss's."""
+    a process-group ``mesh`` the mean runs over every data index's rows
+    and the focal loss applies to that global mean; each data index's
+    gradient is its share of the global loss's.  A sharded model's logits
+    go through the vocabulary-parallel cross entropy."""
     cfg = model.cfg
     logits = model(object_features, position_features, target_caption,
                    generator=generator, deterministic=deterministic,
                    use_kernel=use_kernel)
     targets = torch.as_tensor(target_caption, device=model.device)[:, 1:]
-    ce = cross_entropy_ignore_pad(logits, targets, cfg.pad_idx, mesh)
+    ce = cross_entropy_ignore_pad(logits, targets, cfg.pad_idx, mesh,
+                                  model.tp)
     if cfg.xe_loss == "focal":
         return {"loss": focal_loss_from_ce(ce, cfg.focal_gamma)}
     return {"loss": ce}

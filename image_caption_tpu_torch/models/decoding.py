@@ -56,6 +56,9 @@ def beam_score_mode(caption_model: str) -> str:
 
 def _inputs(model: Captioner, object_features, position_features,
             device: DeviceLike):
+    if model.tp is not None:
+        raise ValueError("decode runs on a full replica of a sharded model "
+                         "(parallel.tensor.full_state_dict), not its shard")
     device = resolve_device(device)
     have = model.device
     if have.type != device.type or (device.index is not None

@@ -126,7 +126,9 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 class MultiHeadAttention(nn.Module):
     """Post-norm residual MHA: ``LayerNorm(dropout(joint(attn)) + q_in)``
-    (modules.py:30-92)."""
+    (modules.py:30-92).  Under tensor parallelism
+    (``parallel.tensor.shard_model``) it runs ``num_heads`` of the heads,
+    ``dropout_heads`` ``(start, total)`` placing them among all of them."""
 
     def __init__(self, input_size: int, q_k_dim: int, v_dim: int,
                  num_heads: int, *, generator: torch.Generator,
@@ -135,6 +137,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.attention_dropout = attention_dropout
+        self.dropout_heads: Optional[Tuple[int, int]] = None
 
         def lin(i, o):
             return Linear(i, o, bias=False, generator=generator,
@@ -162,7 +165,8 @@ class MultiHeadAttention(nn.Module):
                                   generator=attn_gen,
                                   deterministic=deterministic,
                                   use_kernel=use_kernel,
-                                  need_weights=need_weights)
+                                  need_weights=need_weights,
+                                  dropout_heads=self.dropout_heads)
         out = self.joint_linear(merge_heads(out))
         out = dropout(out, self.dropout_rate, out_gen, deterministic)
         return self.layer_norm(out + q_in), attn

@@ -32,14 +32,22 @@ _NEG_INF = float("-inf")
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool,
+            heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout (scale by 1/(1-p) in training).  Without a
     generator it is off, as the JAX version is without an rng.  The mask is
     drawn on ``x``'s device, so the generator must lie there too (a CUDA
-    generator for a CUDA tensor)."""
+    generator for a CUDA tensor).  ``heads`` ``(start, total)``: ``x``
+    [B, h, ...] holds heads ``start`` to ``start + h`` of ``total`` (one
+    rank's under tensor parallelism); the mask is drawn for all ``total``
+    heads and this slice kept, the bits one process draws for them."""
     if deterministic or rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    shape = x.shape if heads is None else (x.shape[0], heads[1],
+                                           *x.shape[2:])
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if heads is not None:
+        keep = keep[:, heads[0]:heads[0] + x.shape[1]]
     return torch.where(keep, x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -58,8 +66,10 @@ def masked_softmax(scores: torch.Tensor) -> torch.Tensor:
 def attention_reference(q, k, v, mask, temperature, *,
                         dropout_rate: float = 0.0,
                         generator: Optional[torch.Generator] = None,
-                        deterministic: bool = True):
-    """Plain path: scores and weighted sum in f32, output in q's dtype."""
+                        deterministic: bool = True,
+                        dropout_heads: Optional[Tuple[int, int]] = None):
+    """Plain path: scores and weighted sum in f32, output in q's dtype;
+    ``dropout_heads`` as ``dropout``'s ``heads``."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float() / temperature,
                           k.float())
     if mask is not None:
@@ -67,7 +77,8 @@ def attention_reference(q, k, v, mask, temperature, *,
         attn = masked_softmax(scores)
     else:
         attn = torch.softmax(scores, dim=-1)
-    attn_dropped = dropout(attn, dropout_rate, generator, deterministic)
+    attn_dropped = dropout(attn, dropout_rate, generator, deterministic,
+                           dropout_heads)
     out = torch.einsum("bhqk,bhkd->bhqd", attn_dropped, v.float())
     return out.to(q.dtype), attn
 
@@ -270,7 +281,8 @@ def sdp_attention(q, k, v, mask, temperature, *,
                   generator: Optional[torch.Generator] = None,
                   deterministic: bool = True,
                   use_kernel: bool = False,
-                  need_weights: bool = True
+                  need_weights: bool = True,
+                  dropout_heads: Optional[Tuple[int, int]] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Dispatch between the fused kernel and the plain path.
 
@@ -291,5 +303,6 @@ def sdp_attention(q, k, v, mask, temperature, *,
     out, attn = attention_reference(q, k, v, mask, temperature,
                                     dropout_rate=dropout_rate,
                                     generator=generator,
-                                    deterministic=deterministic)
+                                    deterministic=deterministic,
+                                    dropout_heads=dropout_heads)
     return out, (attn if need_weights else None)

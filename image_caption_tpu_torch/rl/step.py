@@ -1,4 +1,5 @@
-"""Self-critical train and eval steps, on one device or data parallel.
+"""Self-critical train and eval steps, on one device, data or tensor
+parallel.
 
 The counterpart of the JAX package's ``rl/step.py`` (the two-phase
 sample -> host score -> update schedule).  A step makes ONE teacher-forced
@@ -17,10 +18,12 @@ deterministic eval, kernels #1 and #2 carry attention (13 launches of each
 a train step, 13 of #1 an eval); at the presets' 0.1 the plain path runs.
 
 With a process-group ``mesh`` each rank samples, scores and updates its
-rows of the global batch; the loss is normalised over the global batch and
-the gradients are summed over the ranks (``train.step.apply_update``).
-The sample stream folds the rank in with the dropout stream (the caller's
-``seed``); the deterministic eval's categorical draws fold it into seed 0.
+data index's rows of the global batch; the loss is normalised over the
+global batch and the gradients are summed over the data group
+(``train.step.apply_update``).  The sample stream folds the data index in
+with the dropout stream (the caller's ``seed``); the deterministic eval's
+categorical draws fold it into seed 0.  So the ranks of a model group,
+which sample from the same gathered logits, draw the same sequences.
 """
 
 from __future__ import annotations
@@ -119,8 +122,8 @@ def rl_train_step(state: TrainState, batch: Batch, cfg, *, seed: int,
 def rl_eval_step(model: Captioner, cfg, batch: Batch, *, score: Scorer,
                  use_kernel: bool = True, mesh=None) -> Metrics:
     """The deterministic RL metrics (no dropout; a categorical sample
-    draws from the fixed seed-0 generator, with the rank folded in past
-    rank 0)."""
+    draws from the fixed seed-0 generator, with the data index folded in
+    past data index 0)."""
     logits, _ = rl_forward(model, batch, None, True, use_kernel)
     gen = (generator(fold_in(0, mesh.offset), logits.device)
            if mesh is not None and mesh.offset else None)

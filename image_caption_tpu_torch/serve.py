@@ -13,7 +13,10 @@
     decode, without touching disk.
 
 Both take a ``mesh`` (``parallel.mesh``) and then split each batch over
-its data axis, as the JAX package does; the eligibility rule is
+its data axis, on replicated parameters, as the JAX package does; a model
+axis replicates (each data index's rows run once in one process; in a
+process group every rank of a model group decodes the same rows), so the
+captions are one process's.  The eligibility rule is
 ``decode_placement``'s.  They keep the CUDA kernels on that path: the JAX
 package bypasses its Pallas kernels on the mesh only because a Mosaic call
 has no SPMD partitioning rule, and here each device runs its own block
@@ -78,7 +81,9 @@ def decode_split(model: Captioner, cfg: Config, split: CocoSplit,
     decodes its rows of every batch: in one process through a replica of
     the model per device; over a process group each rank through its
     model, the tokens gathered on every rank (``gather_rows``), so every
-    rank returns the same list (callers write on the main one only)."""
+    rank returns the same list (callers write on the main one only).  A
+    trainer under tensor parallelism passes its full replica
+    (``Trainer.decode_model``)."""
     models, place = decode_placement(mesh, model, batch_size)
     out: List[Optional[str]] = [None] * split.num_images
     for feats, poss, idxs, real in ImageBatches(split, batch_size):
@@ -140,6 +145,8 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
     if mesh is not None and mesh.group is not None:
         raise ValueError("caption_images shards over the local devices of "
                          "one process; run it as a single process")
+    if mesh is not None:
+        mesh = mesh.over_data          # each data index's rows once
     device = resolve_device(device)
     m = cfg.model
     n = len(image_paths)

@@ -1,4 +1,5 @@
-"""The training loop, ``main.py train``, on one device or data parallel.
+"""The training loop, ``main.py train``, on one device, data or tensor
+parallel.
 
 The counterpart of the JAX package's ``train/loop.py``, reproducing the
 reference loop (``main.py:25-153``): per-``log_every`` loss lines on fixed
@@ -9,13 +10,26 @@ a checkpoint with resume from the latest.  ``make_trainer`` gives the XE
 or focal ``Trainer``, or the self-critical ``RLTrainer`` for
 ``RL_Transformer``.
 
+``train.scan_steps`` K > 1 runs the XE or focal ``Trainer``'s updates K
+at a time, as the JAX package's scanned dispatch does: K batches are
+stacked and copied to the device at once (``shard_stacked``), K updates
+step over views of them, and the epoch's remainder runs as single steps;
+the ``[it N]`` lines, TensorBoard steps and samples fire at the first
+chunk boundary past each multiple of their period.  The ``RLTrainer``
+steps one batch at a time whatever K is, as in the JAX package (its
+rewards are scored on the host mid-step).
+
 Data parallelism (``train.data_axis``; ``parallel.mesh``): every process
-runs the loop in lockstep on the same global batches and steps on its own
-rows, one device each; the losses it reports are global.  Only the main
-process (rank 0) writes: log lines, TensorBoard, sample captions, the
-candidates pickle and the scores file; it saves the checkpoint behind a
-barrier, and every rank restores it.  ``train.model_axis`` above 1 (tensor
-parallelism) raises: it is the next slice of the port.
+runs the loop in lockstep on the same global batches and steps on its
+data index's rows, one device each; the losses it reports are global.
+Tensor parallelism (``train.model_axis`` k > 1, ``parallel.tensor``): the
+k ranks of a data index hold one slice each of the sharded parameters and
+run the same rows and the same dropout; decode (samples, the epoch's valid
+decode, the RL eval) runs on a full replica gathered from the shards once
+per update.  Only the main process (rank 0) writes: log lines,
+TensorBoard, sample captions, the candidates pickle and the scores file;
+it saves the checkpoint, in the full layout, behind a barrier, and every
+rank restores it.
 """
 
 from __future__ import annotations
@@ -32,9 +46,11 @@ from ..data.dataset import CaptionBatches, load_split
 from ..data.prefetch import Prefetcher
 from ..data.vocab import decode_captions, invert_vocab
 from ..metrics.evaluate import is_scalar_score, score_captions
+from ..models.captioner import Captioner
 from ..models.decoding import beam_score_mode, beam_search, greedy_decode
-from ..parallel.mesh import (Mesh, barrier, broadcast_params, gather_rows,
-                             make_mesh, shard_batch)
+from ..parallel.mesh import (Mesh, gather_rows, make_mesh, shard_batch,
+                             shard_batch_stacked)
+from ..parallel.tensor import full_state_dict, load_full_state_dict
 from ..rl.rewards import RewardComputer
 from ..rl.step import (RLSample, rl_eval_step, rl_sample, rl_train_step,
                        rl_update)
@@ -43,10 +59,11 @@ from ..utils.debug import StepTimer, annotate, trace_step
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.io import save_pickle
 from ..utils.rng import fold_in
+from ..utils.tree import tree_stack
 from .checkpoint import CheckpointManager
 from .logging import TensorBoardWriter, format_sample, write_scores
 from .state import TrainState, create_train_state
-from .step import eval_step, to_device, train_step, train_steps
+from .step import eval_step, to_device, train_step, train_steps, unstack
 
 
 class Trainer:
@@ -55,12 +72,14 @@ class Trainer:
     weights come from seed ``fold_in(seed, 0)`` and the dropout keys from
     ``fold_in(seed, 1)``; ``seed`` defaults to ``cfg.train.seed``.
 
-    ``mesh`` (``parallel.mesh.make_mesh``): data parallelism over a
-    process group, one device per process, which the trainer runs on.
-    Rank 0's weights are broadcast at construction; every host batch the
-    trainer is given is the global batch, of which it steps on this rank's
-    rows; rank ``r > 0`` draws its dropout from ``fold_in(key, r)``, so
-    rank 0 keeps the single-process stream."""
+    ``mesh`` (``parallel.mesh.make_mesh``): data and tensor parallelism
+    over a process group, one device per process, which the trainer runs
+    on.  Rank 0's weights are broadcast at construction, then sharded over
+    the model axis; every host batch the trainer is given is the global
+    batch, of which it steps on its data index's rows; data index ``d > 0``
+    draws its dropout from ``fold_in(key, d)``, so data index 0 keeps the
+    single-process stream, and the ranks of a model group draw the same
+    masks."""
 
     def __init__(self, cfg: Config, *, mesh: Optional[Mesh] = None,
                  device: DeviceLike = None, seed: Optional[int] = None):
@@ -78,8 +97,8 @@ class Trainer:
         if mesh is not None and mesh.offset:
             self.step_seed = fold_in(self.step_seed, mesh.offset)
         self.state: TrainState = create_train_state(
-            cfg, device=self.device, seed=fold_in(seed, 0))
-        broadcast_params(mesh, self.state.model)
+            cfg, device=self.device, seed=fold_in(seed, 0), mesh=mesh)
+        self._replica: Optional[tuple] = None     # (step, full model)
 
     def shard(self, batch):
         """This rank's rows of a global host batch's (features, positions,
@@ -93,6 +112,41 @@ class Trainer:
         the trainer's device."""
         return to_device(self.shard(batch), self.device)
 
+    def shard_stacked(self, batches):
+        """K global host batches -> this rank's rows of them stacked
+        [K, B, ...] on the device, one copy a leaf for the K steps of
+        ``train_steps_device``."""
+        batches = [tuple(b[:3]) for b in batches]
+        stacked = (tree_stack(batches) if self.mesh is None
+                   else shard_batch_stacked(self.mesh, batches)[0])
+        return to_device(stacked, self.device)
+
+    def load_state_dict(self, state) -> None:
+        """Weights of the reference layout (a full model's state_dict);
+        this rank's slices of them under tensor parallelism."""
+        load_full_state_dict(self.state.model, state)
+        self._replica = None
+
+    def restore(self, ckpt: CheckpointManager, epoch: int) -> None:
+        """The train state of checkpoint ``epoch``."""
+        ckpt.restore(epoch, self.state)
+        self._replica = None
+
+    def decode_model(self) -> Captioner:
+        """The model that decodes: the trained one, or under tensor
+        parallelism a full replica gathered from the shards (a collective:
+        every rank of the model group calls it), made once per update and
+        reused."""
+        model = self.state.model
+        if model.tp is None:
+            return model
+        if self._replica is None or self._replica[0] != self.state.step:
+            replica = (Captioner(self.cfg.model, device=self.device)
+                       if self._replica is None else self._replica[1])
+            replica.load_state_dict(full_state_dict(model))
+            self._replica = (self.state.step, replica)
+        return self._replica[1]
+
     # -- single-step API (MODEL.train_step / compute_loss parity) ---------
     def train_step(self, features, positions, captions) -> Dict[str, float]:
         metrics = self.train_step_device(
@@ -105,11 +159,12 @@ class Trainer:
         return train_step(self.state, batch, seed=self.step_seed,
                           mesh=self.mesh)
 
-    def train_steps_device(self, batches) -> Dict[str, torch.Tensor]:
-        """K updates over K device batches; metrics stacked [K] per key,
-        equal to K ``train_step_device`` calls."""
-        return train_steps(self.state, batches, seed=self.step_seed,
-                           mesh=self.mesh)
+    def train_steps_device(self, stacked) -> Dict[str, torch.Tensor]:
+        """K updates over a stacked device batch (``shard_stacked``), one
+        per view along dim 0; metrics stacked [K] per key, equal to K
+        ``train_step_device`` calls."""
+        return train_steps(self.state, unstack(stacked),
+                           seed=self.step_seed, mesh=self.mesh)
 
     def compute_loss(self, features, positions, captions
                      ) -> Dict[str, float]:
@@ -132,7 +187,7 @@ class Trainer:
         (caption strings, attention or None)."""
         if beam_size is not None and beam_size < 1:
             raise ValueError(f"beam_size must be >= 1, got {beam_size}")
-        model = self.state.model
+        model = self.decode_model()
         if beam_size is None or beam_size == 1:
             tokens, attention = greedy_decode(
                 model, features, positions,
@@ -183,7 +238,7 @@ class RLTrainer(Trainer):
             # all-gather): ranks that disagree would deadlock at the first
             # step, so fail before it
             flags = gather_rows(mesh, np.asarray(
-                [self.reward_computer.uses_frozen_df], np.int32))
+                [self.reward_computer.uses_frozen_df], np.int32), world=True)
             if flags.min() != flags.max():
                 raise RuntimeError(
                     f"frozen CIDEr df ({df_path}) exists on some ranks but "
@@ -204,7 +259,7 @@ class RLTrainer(Trainer):
         """Score sampled sequences [B, N, T] against their captions on the
         host -> ([B, N] rewards, [B, N] self-CIDEr).
 
-        Over a process group the rows are this rank's.  With a frozen
+        Over a process group the rows are this data index's.  With a frozen
         CIDEr df (the production configuration, coco-val-df.p) a row's
         reward depends on that row alone, so each rank scores its own
         rows.  In corpus-df mode CIDEr's idf and reference length come from
@@ -241,10 +296,11 @@ class RLTrainer(Trainer):
                                   seed=self.step_seed)
         return metrics
 
-    def train_steps_device(self, batches):
-        """K updates and the drain of the pending one; metrics stacked [K]
-        per key."""
-        done = [self.train_step_device(b) for b in batches] + [self.flush()]
+    def train_steps_device(self, stacked):
+        """K updates over a stacked device batch and the drain of the
+        pending one; metrics stacked [K] per key."""
+        done = ([self.train_step_device(b) for b in unstack(stacked)]
+                + [self.flush()])
         done = [m for m in done if m is not None]
         return {k: torch.stack([m[k] for m in done])
                 for k in self.metric_keys}
@@ -271,7 +327,7 @@ class RLTrainer(Trainer):
     def compute_loss(self, features, positions, captions
                      ) -> Dict[str, float]:
         self.flush()
-        metrics = rl_eval_step(self.state.model, self.cfg,
+        metrics = rl_eval_step(self.decode_model(), self.cfg,
                                self.to_device((features, positions,
                                                captions)),
                                score=self._host_rewards, mesh=self.mesh)
@@ -330,14 +386,14 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
 
     start_epoch = 1
     last = ckpt.latest_epoch() if resume else None
-    seen = gather_rows(mesh, np.asarray([-1 if last is None else last]))
+    seen = gather_rows(mesh, np.asarray([-1 if last is None else last]),
+                       world=True)
     if seen.min() != seen.max():
         raise RuntimeError(f"the ranks see different latest checkpoints "
                            f"{seen.tolist()} under {ckpt.directory}: give "
                            "every rank the same output path")
     if last is not None:
-        trainer.state = ckpt.restore(last, trainer.state)
-        broadcast_params(mesh, trainer.state.model)
+        trainer.restore(ckpt, last)
         start_epoch = last + 1
         if verbose:
             print(f"[train] resumed from epoch {last}")
@@ -349,19 +405,42 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
     fixed_train = next(train_batches.epoch(0))[:3]
     fixed_valid = next(iter(valid_batches))[:3]
 
+    # train.scan_steps: K updates a dispatch, XE and focal only (the
+    # RLTrainer scores its rewards on the host mid-step)
+    scan_k = 1 if isinstance(trainer, RLTrainer) else max(1, t.scan_steps)
+
+    def chunks(batches):
+        """K batches at a time; the epoch's remainder one at a time."""
+        buf = []
+        for item in batches:
+            buf.append(item)
+            if len(buf) == scan_k:
+                yield buf
+                buf = []
+        for item in buf:
+            yield [item]
+
+    def prepare(items):
+        if len(items) == 1:
+            return 1, trainer.to_device(items[0])
+        return len(items), trainer.shard_stacked(items)
+
     global_it = 0               # per run, as the JAX package counts
     for epoch in range(start_epoch, num_epochs + 1):
         t0 = time.time()
         timer = StepTimer()
-        # a background thread assembles the next batches on the host
-        prefetched = Prefetcher(train_batches.epoch(epoch),
-                                transform=trainer.to_device)
-        for batch in prefetched:
+        # a background thread assembles the next chunks on the host
+        prefetched = Prefetcher(chunks(train_batches.epoch(epoch)),
+                                transform=prepare)
+        for k, batch in prefetched:
             with annotate("train_step"):
-                trainer.train_step_device(batch)
-            timer.step()
+                if k == 1:
+                    trainer.train_step_device(batch)
+                else:
+                    trainer.train_steps_device(batch)
+            timer.step(k)
             trace_step()
-            prev_it, global_it = global_it, global_it + 1
+            prev_it, global_it = global_it, global_it + k
 
             # every rank evaluates (the losses are collectives); the main
             # one writes
@@ -378,7 +457,8 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
 
             if global_it // t.sample_every > prev_it // t.sample_every:
                 trainer.flush()       # the weights must be current
-                if is_main:           # no collective below
+                trainer.decode_model()   # a collective under TP
+                if is_main:
                     cap = trainer.generate_caption(
                         fixed_train[0][:1], fixed_train[1][:1],
                         idx_to_word)[0][0]
@@ -397,9 +477,10 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
             for key in trainer.metric_keys:
                 writer.write_epoch(key, train_loss[key], valid_loss[key],
                                    epoch)
-            candidates = decode_split(trainer.state.model, cfg, valid_split,
-                                      t.batch_size, idx_to_word,
-                                      device=trainer.device, mesh=mesh)
+            candidates = decode_split(trainer.decode_model(), cfg,
+                                      valid_split, t.batch_size,
+                                      idx_to_word, device=trainer.device,
+                                      mesh=mesh)
 
         if is_main:
             save_pickle(candidates, os.path.join(
@@ -415,9 +496,7 @@ def train(cfg: Config, *, num_epochs: Optional[int] = None,
                                             epoch)
 
         if epoch % t.checkpoint_every_epochs == 0:
-            if is_main:
-                ckpt.save(epoch, trainer.state)
-            barrier(mesh)             # every rank may now restore it
+            ckpt.save(epoch, trainer.state, mesh)
         if verbose:
             sps = timer.steps_per_sec
             print(f"[epoch {epoch}] train_loss={train_loss['loss']:.4f} "

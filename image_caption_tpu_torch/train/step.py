@@ -1,31 +1,35 @@
-"""XE / focal train and eval steps, on one device or data parallel.
+"""XE / focal train and eval steps, on one device, data or tensor parallel.
 
 The counterpart of the JAX package's ``train/step.py``
 (``core/models.py:115-135`` semantics): loss, backward, the pad row of the
 word embedding frozen, one Adam update.  Dropout of step ``s`` draws from a
 generator seeded from ``(seed, s)`` on the model's device, as the JAX step
-folds ``state.step`` into its rng.  ``train_steps`` runs K updates as a
-loop, where the JAX package scans.
+folds ``state.step`` into its rng.  ``train_steps`` runs the K updates of
+one ``train.scan_steps`` dispatch as a loop, where the JAX package scans.
 
-With a process-group ``mesh`` each rank steps on its rows of the global
-batch: the loss is the global one (``parallel.mesh.global_mean``), and the
-gradients are summed over the ranks, flat, before the pad row is
-zeroed and Adam steps, so every rank applies the same update and the
-ranks' weights stay bitwise equal.  The caller folds the rank into
-``seed`` (``Trainer`` does), so the ranks draw different dropout masks.
+With a process-group ``mesh`` each rank steps on its data index's rows of
+the global batch: the loss is the global one (``parallel.mesh.global_mean``
+over the data group), and the gradients are summed over the data group,
+flat, before the pad row is zeroed and Adam steps, so the ranks of a data
+group apply the same update and their weights stay bitwise equal.  Under
+tensor parallelism the model holds this rank's shards and its collectives
+run inside the forward and backward (``parallel.tensor``).  The caller
+folds the data index into ``seed`` (``Trainer`` does), so the data indices
+draw different dropout masks and the ranks of a model group the same.
 
 The steps ask for the fused attention kernels (``use_kernel=True``, as
 ``serve.decode_split`` does), and ``sdp_attention``'s dispatch rule
 decides: with attention dropout active (the presets' 0.1) the plain path
 runs; with ``model.attention_dropout=0.0``, and in ``eval_step``, the
-forward and backward kernels run.  The JAX step leaves ``use_pallas`` off
+forward and backward kernels run, on this rank's heads under tensor
+parallelism.  The JAX step leaves ``use_pallas`` off
 (``train/step.py:27``); the function computed is the same, only the route
 differs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,8 +63,8 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def apply_update(state: TrainState, loss: torch.Tensor, mesh=None) -> None:
-    """Backward of ``loss``, the gradients summed over the mesh's ranks,
-    the pad row's gradient zeroed, one Adam step.  Under
+    """Backward of ``loss``, the gradients summed over the mesh's data
+    group, the pad row's gradient zeroed, one Adam step.  Under
     ``utils.debug.enable_nan_debugging`` a non-finite loss or gradient
     raises first."""
     model = state.model
@@ -100,10 +104,16 @@ def train_steps(state: TrainState, batches: Sequence[Batch], *, seed: int,
     return {"loss": torch.stack(losses)}
 
 
+def unstack(stacked: Batch) -> List[Batch]:
+    """The K batches of a stacked batch (``[K, B, ...]`` leaves), as views
+    along dim 0."""
+    return [tuple(x[i] for x in stacked) for i in range(stacked[0].shape[0])]
+
+
 @torch.no_grad()
 def eval_step(model: Captioner, batch: Batch, *, use_kernel: bool = True,
               mesh=None) -> Dict[str, torch.Tensor]:
-    """Deterministic loss (core/models.py:128-135), over every rank's rows
-    with a process-group ``mesh``."""
+    """Deterministic loss (core/models.py:128-135), over every data index's
+    rows with a process-group ``mesh``."""
     return xe_loss(model, *batch, deterministic=True, use_kernel=use_kernel,
                    mesh=mesh)

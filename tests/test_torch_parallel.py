@@ -43,14 +43,35 @@ def test_make_mesh_axis_arithmetic_matches_jax(n, data, model, sequence):
 
 @pytest.mark.parametrize("axis", ["model", "sequence"])
 def test_model_and_sequence_axes_raise_naming_the_roadmap(axis):
+    """The sequence axis is still to port and raises naming the roadmap.
+    A model axis builds the JAX package's mesh shape; in one process each
+    device holds the rows of its data index, as ``data_sharding`` places
+    them on the JAX mesh, and decode runs each data index once."""
     kw = {axis: 2}
     assert JM.make_mesh(jax.devices()[:2], data=1, **kw).shape[axis] == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TM.make_mesh(["cpu"] * 2, data=1, **kw)
+    if axis == "sequence":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TM.make_mesh(["cpu"] * 2, data=1, **kw)
+        return
+    for n, data, model in ((2, 1, 2), (8, 2, 4), (8, -1, 2), (4, 2, 2)):
+        want = JM.make_mesh(jax.devices()[:n], data, model)
+        got = TM.make_mesh(["cpu"] * n, data, model)
+        assert got.shape == dict(want.shape)
+        indices = NamedSharding(want, PartitionSpec(JM.DATA_AXIS)) \
+            .devices_indices_map((16, 3))
+        rows = [slice(r.start or 0, r.stop or 16) for r in
+                (indices[d][0] for d in want.devices.ravel())]
+        assert got.row_blocks(16) == rows
+        assert len(got.over_data.devices) == got.shape["data"]
+        assert got.over_data.row_blocks(16) == rows[::got.shape["model"]]
+    with pytest.raises(ValueError, match="torchrun"):
+        TM.make_mesh(["cpu"], model=2)
 
 
 def test_model_axis_raises_through_the_cli(tmp_path):
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    """Tensor parallelism needs one process per device: one process with
+    train.model_axis=2 raises, naming the launch that runs it."""
+    with pytest.raises(ValueError, match="torchrun"):
         cli_main(["--device", "cpu", "--set", "train.model_axis=2",
                   "--data-path", str(tmp_path), "--output-path",
                   str(tmp_path), "train"])

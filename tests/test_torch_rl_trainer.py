@@ -91,7 +91,8 @@ def test_pipelined_equals_serial_bitwise_with_dropout(flagship_tiny_cfg):
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     # K steps in one call: the same updates, drained
     k_steps = TLOOP.RLTrainer(cfg, vocab, device="cpu", seed=3)
-    stacked = k_steps.train_steps_device(batches)
+    stacked = k_steps.train_steps_device(k_steps.shard_stacked(
+        [make_fake_batch(cfg, batch=4, seed=s) for s in range(5)]))
     assert stacked["loss"].shape == (5,) and k_steps.state.step == 5
     assert torch.equal(stacked["loss"],
                        torch.stack([m["loss"] for m in want]))

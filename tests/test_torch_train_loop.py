@@ -119,7 +119,7 @@ def test_trainer_api(tiny_cfg):
     assert set(before) == set(tr.metric_keys) == {"loss"}
     m = tr.train_step(f, p, c)
     assert isinstance(m["loss"], float) and np.isfinite(m["loss"])
-    ms = tr.train_steps_device([tr.to_device((f, p, c))] * 2)
+    ms = tr.train_steps_device(tr.shard_stacked([(f, p, c)] * 2))
     assert ms["loss"].shape == (2,) and tr.state.step == 3
     assert tr.flush() is None
     idx_to_word = {i: f"w{i}" for i in range(tiny_cfg.model.num_vocab)}

@@ -180,8 +180,8 @@ def test_zero_pad_embedding_grad(tiny_cfg):
 # ---------------------------------------------------------------------------
 
 def _record(calls, fn, stats=None):
-    def wrapped(x, rate, rng, deterministic):
-        out = fn(x, rate, rng, deterministic)
+    def wrapped(x, rate, rng, deterministic, *heads):
+        out = fn(x, rate, rng, deterministic, *heads)
         calls.append((float(rate), tuple(x.shape)))
         if stats is not None and rng is not None and not deterministic:
             stats.append((float(rate), x.detach(), out.detach()))
