@@ -17,7 +17,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    block layouts (the largest tiles one block takes, rows of 5 and 6
    floats; fully masked rows give exactly zero dq and finite dk, dv); both
    also at the four training shapes with 16 heads, one rank's of a model
-   group of two;
+   group of two, and at a sequence-parallel rank's shapes (its block of
+   slots against every slot: Lq 7 against Lk 21, Lq 12 against Lk 36,
+   and its 12 slots' pairs);
 4. gradient check: ``torch.autograd.grad`` through
    ``sdp_attention(use_kernel=True)`` (the two kernels) and through the
    plain path on the card agree for q, k and v; two launches of each
@@ -196,10 +198,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
     within 3e-2 x max|ref| (images that detect otherwise are printed with
     the detector's own bf16 score gap between the two batch sizes); then
     ``caption_images`` over that mesh: equal to one device's at batch 16,
-    and at batch 32 on images with equal detections but at ties.
+    and at batch 32 on images with equal detections but at ties;
+31. sp world 3 (after phase 28): three subprocesses (``chip_smoke.py
+    sp-worker``) on the one card over gloo as one sequence group, full
+    width, against one process here: 3 XE steps of
+    ``maxlen49_20obj_128_14b_16h_mask`` at attention dropout 0 (7 of its
+    21 slots a rank; losses 2e-4, step-1 gradients 1e-4, the ranks'
+    weights bitwise equal) and ``decode_split`` of 70 images greedy and
+    beam 3 after them (captions equal but at ties), 3 pipelined argmax
+    SCST steps of the RL flagship at 35 objects (36 slots, 12 a rank;
+    samples equal but at a top-2 margin below 1e-4), one XE step of the
+    flagship at its 37 slots, which 3 do not divide (every rank holds
+    every slot); launches per rank; functional, not a scaling figure.
 
 It prints a JSON line of the kernels (their launches by path, the
-scanned and tensor-parallel paths among them), the card's name and power
+scanned, tensor- and sequence-parallel paths among them), the card's
+name and power
 limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero and prints no result.
@@ -228,6 +242,12 @@ TRAIN_STEPS = 20
 LAUNCHES_PER_STEP = 13
 # the flagship's 32 heads on one rank of a model group of two
 TP_HEADS = 16
+# the sequence-3 phase: three ranks, one block of slots each, of the XE
+# preset below (21 slots, 7 a rank) and of the RL flagship at 35 objects
+# (36 slots, 12 a rank)
+SP_WORLD = 3
+SP_PRESET = "maxlen49_20obj_128_14b_16h_mask"
+SP_OBJECTS = 35
 # H100 SXM data-sheet peaks: HBM bytes/s; float32 FLOP/s off the tensor
 # cores (the attention kernels compute in float32 on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -300,12 +320,14 @@ def encoder_mask(pad: np.ndarray) -> np.ndarray:
     return pad[:, None, :] | np.triu(np.ones((s, s), bool), 1)[None]
 
 
-def pair_mask(pad: np.ndarray) -> np.ndarray:
-    """The split_image_objects pair block's mask, [B*S, 2, 2]: token 0 is
-    the whole image (slot 0), token 1 the object."""
-    b, s = pad.shape
-    pair = np.stack([np.repeat(pad[:, :1], s, axis=1), pad], axis=2)
-    return encoder_mask(pair.reshape(b * s, 2))
+def pair_mask(pad: np.ndarray, block: slice = slice(None)) -> np.ndarray:
+    """The split_image_objects pair block's mask, [B*n, 2, 2], over the
+    n slots of ``block``: token 0 is the whole image (slot 0), token 1
+    the object."""
+    objects = pad[:, block]
+    b, n = objects.shape
+    pair = np.stack([np.repeat(pad[:, :1], n, axis=1), objects], axis=2)
+    return encoder_mask(pair.reshape(b * n, 2))
 
 
 def attention_case(name, b, h, lq, lk, dh, mask, seed):
@@ -363,7 +385,8 @@ def check_kernel(device) -> float:
     from image_caption_tpu_torch.ops.attention import (attention_reference,
                                                        fused_attention)
     worst_f32 = 0.0
-    for case in kernel_cases() + training_cases()[2:4] + tp_cases():
+    for case in (kernel_cases() + training_cases()[2:4] + tp_cases()
+                 + sp_cases()):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, m, t = on(case, device, dtype)
             got = fused_attention(q, k, v, m, t)
@@ -430,6 +453,31 @@ def tp_cases():
             for c in training_cases(heads=TP_HEADS)[:4]]
 
 
+def sp_cases(batch: int = 32):
+    """Kernels #1 and #2 at the shapes sequence index 1 of the sequence-3
+    phase launches, each with an output gradient: its 7 of the XE
+    preset's 21 slots against all 21 (16 heads), its 12 of the RL
+    flagship's 36 against all 36 (32 heads), and its 12 slots' pairs, with
+    the rows of the full masks at the block's offsets (items 3 and 17
+    all-zero)."""
+    rng = np.random.RandomState(8)
+    cases, pad = [], None
+    for name, slots, heads in (("l_sp_encoder", 21, 16),
+                               ("m_sp_encoder36", 36, 32)):
+        pad = slot_pad(batch, slots, rng, zero_items=(3, 17))
+        n = slots // SP_WORLD
+        cases.append(attention_case(name, batch, heads, n, slots, 8,
+                                    encoder_mask(pad)[:, n:2 * n],
+                                    50 + len(cases)))
+    cases.append(attention_case("n_sp_pair", batch * 12, 32, 2, 2, 8,
+                                pair_mask(pad, slice(12, 24)), 52))
+    for i, case in enumerate(cases):
+        b, h, lq, _, dh = case["shape"]
+        case["do"] = np.random.RandomState(60 + i).randn(
+            b, h, lq, dh).astype(np.float32)
+    return cases
+
+
 def bwd_edge_cases():
     """Kernel #2's other block layouts: the largest square tiles one block
     takes at head dims 8 and 5 (``bwd_shared_bytes``), head dims whose rows
@@ -461,7 +509,8 @@ def check_kernel_bwd(device) -> float:
     from image_caption_tpu_torch.ops.attention import (
         attention_bwd_reference, fused_attention_bwd)
     worst_f32 = 0.0
-    for case in training_cases() + bwd_edge_cases() + tp_cases():
+    for case in (training_cases() + bwd_edge_cases() + tp_cases()
+                 + sp_cases()):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, m, t = on(case, device, dtype)
             do = torch.from_numpy(case["do"]).to(device).to(dtype)
@@ -539,13 +588,13 @@ def check_gradients(device) -> float:
 
 def check_attention_determinism(device):
     """Two launches of kernel #1 and two of kernel #2 on the same float32
-    inputs at each training shape, and at its 16-head shape, give the same
-    bits: every sum runs in an order fixed by the shape, with no
-    atomics."""
+    inputs at each training shape, at its 16-head shape and at the
+    sequence-3 phase's shapes, give the same bits: every sum runs in an
+    order fixed by the shape, with no atomics."""
     import torch
     from image_caption_tpu_torch.ops.attention import (fused_attention,
                                                        fused_attention_bwd)
-    for case in training_cases()[:4] + tp_cases():
+    for case in training_cases()[:4] + tp_cases() + sp_cases():
         q, k, v, m, t = on(case, device, torch.float32)
         do = torch.from_numpy(case["do"]).to(device)
         runs = [(fused_attention(q, k, v, m, t),
@@ -621,9 +670,11 @@ def time_kernel(card: str):
                                                        fused_attention)
     rows = {}
     # the serving shapes, the decoder's training shapes, a larger batch,
-    # the training shapes at a tensor-parallel rank's 16 heads
+    # the training shapes at a tensor-parallel rank's 16 heads, a
+    # sequence-parallel rank's shapes
     cases = kernel_cases()[:2] + training_cases()[2:4] + [
-        dict(kernel_cases(batch=128)[0], name="a_encoder_B128")] + tp_cases()
+        dict(kernel_cases(batch=128)[0], name="a_encoder_B128")] + \
+        tp_cases() + sp_cases()
     for case in cases:
         q, k, v, m, t = on(case, "cuda", torch.float32)
         boolmask = m != 0
@@ -667,7 +718,8 @@ def bound_bwd(case, elem_bytes: int):
 
 def time_kernel_bwd(card: str):
     """Kernel #2 at the four training shapes in float32, the encoder's at
-    batch 128, and the four at 16 heads: its device time and call time,
+    batch 128, the four at 16 heads and the sequence-3 phase's: its
+    device time and call time,
     the plain version's, and the library yardstick, the backward of
     ``scaled_dot_product_attention`` (forward plus backward, minus
     forward; never called by the port)."""
@@ -677,7 +729,7 @@ def time_kernel_bwd(card: str):
         attention_bwd_reference, fused_attention_bwd)
     rows = {}
     big = dict(training_cases(batch=128)[0], name="a_encoder_B128")
-    for case in training_cases()[:4] + [big] + tp_cases():
+    for case in training_cases()[:4] + [big] + tp_cases() + sp_cases():
         q, k, v, m, t = on(case, "cuda", torch.float32)
         do = torch.from_numpy(case["do"]).cuda()
         additive = torch.zeros(m.shape, device="cuda").masked_fill(
@@ -3063,7 +3115,7 @@ def dp_worker(rank: int, world: int, workdir: str, model: int = 1) -> int:
                                                          gather_full)
     from image_caption_tpu_torch.serve import decode_split
     from image_caption_tpu_torch.train.checkpoint import CheckpointManager
-    from image_caption_tpu_torch.train.loop import RLTrainer, Trainer
+    from image_caption_tpu_torch.train.loop import Trainer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     inputs = torch.load(os.path.join(workdir, "inputs.pt"),
@@ -3100,32 +3152,7 @@ def dp_worker(rank: int, world: int, workdir: str, model: int = 1) -> int:
             out["xe"]["weights"] = {k: v.cpu() for k, v in
                                     full_state_dict(xe.state.model).items()}
         del xe
-        # SCST: 3 pipelined steps, frozen df, the samples kept
-        words = vocabulary(cfgs["scst"].model.num_vocab)
-        rl = RLTrainer(cfgs["scst"], {w: i for i, w in words.items()},
-                       mesh=mesh, seed=0)
-        rl.load_state_dict(inputs["scst"]["weights"])
-        score, samples = rl._host_rewards, []
-
-        def kept(sample_seq, captions):
-            samples.append(sample_seq.copy())
-            return score(sample_seq, captions)
-        rl._host_rewards = kept
-        batch = rl.to_device(inputs["scst"]["batch"])
-        zero_launch_counts()
-        synchronize(device)
-        t0 = time.perf_counter()
-        metrics = [rl.train_step_device(batch)
-                   for _ in range(DP_STEPS)] + [rl.flush()]
-        synchronize(device)
-        out["scst"] = {"metrics": [{k: float(v) for k, v in m.items()}
-                                   for m in metrics if m is not None],
-                       "samples": samples, "seconds":
-                       time.perf_counter() - t0,
-                       "digest": params_digest(rl.state.model),
-                       "launches": launch_counts(),
-                       "frozen_df": rl.reward_computer.uses_frozen_df}
-        del rl
+        out["scst"] = worker_scst(inputs["scst"], mesh, device)
         # decode_split of the 70-image split, each rank its rows
         m, dec = cfgs["decode"].model, inputs["decode"]
         model = Captioner(m, device=device)
@@ -3143,6 +3170,36 @@ def dp_worker(rank: int, world: int, workdir: str, model: int = 1) -> int:
     finally:
         distributed.shutdown()
     return 0
+
+
+def worker_scst(case, mesh, device: str):
+    """A rank's 3 pipelined SCST steps of ``case`` (cfg, weights, batch)
+    over ``mesh``: the metrics, the sampled sequences, the seconds, the
+    weights' digest, the launches and whether the frozen df was used."""
+    from image_caption_tpu_torch.train.loop import RLTrainer
+    cfg = case["cfg"]
+    words = vocabulary(cfg.model.num_vocab)
+    rl = RLTrainer(cfg, {w: i for i, w in words.items()}, mesh=mesh, seed=0)
+    rl.load_state_dict(case["weights"])
+    score, samples = rl._host_rewards, []
+
+    def kept(sample_seq, captions):
+        samples.append(sample_seq.copy())
+        return score(sample_seq, captions)
+    rl._host_rewards = kept
+    batch = rl.to_device(case["batch"])
+    zero_launch_counts()
+    synchronize(device)
+    t0 = time.perf_counter()
+    metrics = [rl.train_step_device(batch)
+               for _ in range(DP_STEPS)] + [rl.flush()]
+    synchronize(device)
+    return {"metrics": [{k: float(v) for k, v in m.items()}
+                        for m in metrics if m is not None],
+            "samples": samples, "seconds": time.perf_counter() - t0,
+            "digest": params_digest(rl.state.model),
+            "launches": launch_counts(),
+            "frozen_df": rl.reward_computer.uses_frozen_df}
 
 
 def reference_scst(cfg, weights, batch, device: str):
@@ -3170,7 +3227,7 @@ def reference_scst(cfg, weights, batch, device: str):
     return steps
 
 
-def caption_ties(model, cfg, split, want, got, beam, batch_size: int):
+def caption_ties(model, cfg, split, want, got, beam, label: str):
     """Images whose captions differ between ``want`` (single process) and
     ``got``: each difference must be a near-tie of the single process's
     model.  Greedy: at the first differing word, its teacher-forced top-2
@@ -3207,7 +3264,7 @@ def caption_ties(model, cfg, split, want, got, beam, batch_size: int):
             keep = (caps[:, 1:] != 0).float()
             score = (picked * keep).sum(1)
             gap = abs(score[0] - score[1]).item()
-        print(f"dp world 2: image {i} {'beam' if beam else 'greedy'} "
+        print(f"{label}: image {i} {'beam' if beam else 'greedy'} "
               f"caption differs; single-process gap {gap:.3e}", flush=True)
         if not gap < MARGIN:
             raise AssertionError(f"image {i}: captions {want[i]!r} and "
@@ -3247,15 +3304,15 @@ def world2_references(inputs, scst_weights, device: str):
             "caps": want_caps, "model": model, "split": split}
 
 
-def start_world2(kind: str, tmp: str):
-    """Two ``chip_smoke.py kind`` ranks on this card over gloo, their
-    output under ``tmp``."""
+def start_world2(kind: str, tmp: str, world: int = DP_WORLD):
+    """``world`` (two) ``chip_smoke.py kind`` ranks on this card over
+    gloo, their output under ``tmp``."""
     procs = []
-    for r in range(DP_WORLD):
+    for r in range(world):
         with open(os.path.join(tmp, f"rank{r}.log"), "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), kind, str(r),
-                 str(DP_WORLD), tmp], stdout=log, stderr=subprocess.STDOUT))
+                 str(world), tmp], stdout=log, stderr=subprocess.STDOUT))
     return procs
 
 
@@ -3271,37 +3328,38 @@ def finish_world2(label: str, procs, tmp: str):
             raise AssertionError(f"{label} rank {r} exited {p.returncode}:"
                                  f"\n{log[-3000:]}")
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(DP_WORLD)]
+            for r in range(len(procs))]
 
 
-def check_world2(label: str, ranks, refs, rl_cfg, rows, card: str,
-                 device: str):
-    """The ranks of a world-2 phase against ``refs`` (one process): XE
-    losses and step-1 gradients (full layout), SCST samples (rank ``r``'s
-    are the reference's ``rows(r)``, equal but at a top-2 margin below
-    MARGIN) and metrics, the ranks' weights bitwise equal, decode's
-    captions equal but at ties; then each rank's launches.  Returns
-    them per rank."""
-    # XE
+def check_xe_ranks(label: str, ranks, want, want_grads, key: str = "xe"):
+    """Every rank's XE losses against one process's ``want``, rank 0's
+    step-1 gradients (full layout) against ``want_grads``, the ranks'
+    weights bitwise equal."""
     loss_err = max(abs(a - b) for r in ranks
-                   for a, b in zip(r["xe"]["losses"], refs["xe"]))
-    grad_err = max(norm_rel(g, refs["grads"][n])
-                   for n, g in ranks[0]["xe"]["grads"].items())
-    same = ranks[0]["xe"]["digest"] == ranks[1]["xe"]["digest"]
-    print(f"{label} xe: losses "
-          f"{' '.join(f'{x:.6f}' for x in refs['xe'])} (single process), "
+                   for a, b in zip(r[key]["losses"], want))
+    grad_err = max(norm_rel(g, want_grads[n])
+                   for n, g in ranks[0][key]["grads"].items())
+    same = len({r[key]["digest"] for r in ranks}) == 1
+    steps = len(want)
+    print(f"{label} {key}: losses "
+          f"{' '.join(f'{x:.6f}' for x in want)} (single process), "
           f"max_abs_err {loss_err:.3e} (tol {LOSS_TOL:g}); step-1 gradients "
           f"norm-relative max {grad_err:.3e} (tol {GRAD_TOL:g}); ranks' "
-          f"weights bitwise equal after {DP_STEPS} steps: {same}",
+          f"weights bitwise equal after {steps} steps: {same}",
           flush=True)
     if not (loss_err <= LOSS_TOL and grad_err <= GRAD_TOL and same):
-        raise AssertionError(f"{label} XE disagrees with one process")
+        raise AssertionError(f"{label} {key} disagrees with one process")
 
-    # SCST
+
+def check_scst_ranks(label: str, ranks, want_steps, rows):
+    """Every rank's SCST samples (rank ``r``'s are the reference's
+    ``rows(r)``, equal but at a top-2 margin below MARGIN) and metrics
+    against one process's, the frozen df used, the ranks' weights bitwise
+    equal."""
     if not all(r["scst"]["frozen_df"] for r in ranks):
         raise AssertionError(f"{label} scst: the frozen df was not used")
     flips, compared, worst = 0, 0, 0.0
-    for step, want in enumerate(refs["scst"]):
+    for step, want in enumerate(want_steps):
         differ = 0
         for rank, r in enumerate(ranks):
             got = r["scst"]["samples"][step][:, 0]
@@ -3321,9 +3379,9 @@ def check_world2(label: str, ranks, refs, rl_cfg, rows, card: str,
         for r in ranks:
             for k, v in r["scst"]["metrics"][step].items():
                 worst = max(worst, abs(v - want["metrics"][k]))
-    same = ranks[0]["scst"]["digest"] == ranks[1]["scst"]["digest"]
+    same = len({r["scst"]["digest"] for r in ranks}) == 1
     print(f"{label} scst: losses "
-          f"{' '.join(f'{s['metrics']['loss']:.6f}' for s in refs['scst'])} "
+          f"{' '.join(f'{s['metrics']['loss']:.6f}' for s in want_steps)} "
           f"(single process), metrics max_abs_err {worst:.3e} over "
           f"{compared} steps (tol {LOSS_TOL:g}); {flips} row-steps sampled "
           f"differently, all at margins below {MARGIN:g}; ranks' weights "
@@ -3331,45 +3389,67 @@ def check_world2(label: str, ranks, refs, rl_cfg, rows, card: str,
     if not (worst <= LOSS_TOL and same and compared >= 1):
         raise AssertionError(f"{label} SCST disagrees with one process")
 
-    # decode
+
+def check_decode_ranks(label: str, ranks, refs, cfg):
+    """Every rank's ``decode_split`` captions, greedy and beam 3, the same
+    list, equal to one process's but at ties of ``refs["model"]``."""
     for name, beam in (("greedy", None), ("beam3", 3)):
         got = ranks[0]["decode"][name]["captions"]
-        if ranks[1]["decode"][name]["captions"] != got:
+        if any(r["decode"][name]["captions"] != got for r in ranks[1:]):
             raise AssertionError(f"{label} {name}: the ranks' caption "
                                  "lists differ")
-        n = caption_ties(refs["model"], rl_cfg, refs["split"],
-                         refs["caps"][name], got, beam, EXTRACT_BATCH)
+        n = caption_ties(refs["model"], cfg, refs["split"],
+                         refs["caps"][name], got, beam, label)
         print(f"{label} decode {name}: {EXTRACT_IMAGES - n} of "
               f"{EXTRACT_IMAGES} captions equal to one process's, the "
               f"rest at ties", flush=True)
 
-    # launches, per rank
+
+def rank_launches(r):
+    """A rank's launches of #1 and #2 on its train, SCST and decode
+    paths."""
+    return {"train": r["xe"]["launches"], "scst": r["scst"]["launches"],
+            "decode": {k: sum(r["decode"][lb]["launches"][k]
+                              for lb in ("greedy", "beam3"))
+                       for k in ("fused_attention", "fused_attention_bwd")}}
+
+
+def check_launches(label: str, counts, want: dict):
+    """``counts`` (``rank_launches``) against ``want``: path -> launches
+    of #1 and #2."""
+    for path, n in want.items():
+        if counts[path] != {"fused_attention": n[0],
+                            "fused_attention_bwd": n[1]}:
+            raise AssertionError(f"{label} {path} launched {counts[path]},"
+                                 f" want {n}")
+
+
+def check_world2(label: str, ranks, refs, rl_cfg, rows, card: str,
+                 device: str):
+    """The ranks of a world-2 phase against ``refs`` (one process): XE
+    losses and step-1 gradients (full layout), SCST samples (rank ``r``'s
+    are the reference's ``rows(r)``, equal but at a top-2 margin below
+    MARGIN) and metrics, the ranks' weights bitwise equal, decode's
+    captions equal but at ties; then each rank's launches.  Returns
+    them per rank."""
+    check_xe_ranks(label, ranks, refs["xe"], refs["grads"])
+    check_scst_ranks(label, ranks, refs["scst"], rows)
+    check_decode_ranks(label, ranks, refs, rl_cfg)
     n_batches = -(-EXTRACT_IMAGES // EXTRACT_BATCH)
-    want = LAUNCHES_PER_STEP * DP_STEPS
+    per_run = LAUNCHES_PER_STEP * DP_STEPS
     by_rank = []
     for rank, r in enumerate(ranks):
-        counts = {"train": r["xe"]["launches"],
-                  "scst": r["scst"]["launches"],
-                  "decode": {
-                      k: sum(r["decode"][lb]["launches"][k]
-                             for lb in ("greedy", "beam3"))
-                      for k in ("fused_attention", "fused_attention_bwd")}}
+        counts = rank_launches(r)
         by_rank.append(counts)
         print(f"{label} rank {rank}: launches {counts}; steps/s xe "
               f"{DP_STEPS / r['xe']['seconds']:.3f}, scst "
               f"{DP_STEPS / r['scst']['seconds']:.3f} (two ranks sharing "
               f"one card over gloo: a functional check, not a scaling "
               f"figure) [{card}]", flush=True)
-        if device == "cpu":
-            continue
-        for path in ("train", "scst"):
-            if any(v != want for v in counts[path].values()):
-                raise AssertionError(f"{label} rank {rank} {path} "
-                                     f"launched {counts[path]}")
-        if counts["decode"] != {"fused_attention": 2 * 3 * n_batches,
-                                "fused_attention_bwd": 0}:
-            raise AssertionError(f"{label} rank {rank} decode launched "
-                                 f"{counts['decode']}")
+        if device != "cpu":
+            check_launches(f"{label} rank {rank}", counts, {
+                "train": (per_run, per_run), "scst": (per_run, per_run),
+                "decode": (2 * 3 * n_batches, 0)})
     return by_rank
 
 
@@ -3440,6 +3520,192 @@ def drive_tp_world2(xe_cfg, rl_cfg, scst_weights, refs, card: str,
                              "the gathered weights at model 1")
     return check_world2("tp world 2", ranks, refs, rl_cfg,
                         lambda r: slice(None), card, device)
+
+
+def sp_inputs(xe_cfg, fallback_cfg, rl_cfg, scst_weights, tmp: str):
+    """The sequence-3 phase's inputs: ``xe_cfg`` (the 21-slot preset) at
+    attention dropout 0 (its residual dropout on), ``rl_cfg`` (the RL
+    flagship) at 36 slots from ``scst_weights`` with all dropout off and
+    a frozen df written to ``tmp``, and ``fallback_cfg`` (the XE flagship
+    at its own 37 slots) at attention dropout 0, each with its weights
+    and global batch."""
+    import torch
+    from image_caption_tpu_torch.models.captioner import Captioner
+    no_attn = {"model.attention_dropout": 0.0}
+    xe = xe_cfg.with_overrides(**no_attn)
+    fallback = fallback_cfg.with_overrides(**no_attn)
+    rl = rl_cfg.with_overrides(**{
+        "model.num_objects": SP_OBJECTS, "model.dropout": 0.0,
+        "model.attention_dropout": 0.0, "data.data_path": tmp,
+        "rl.pipeline_depth": 1})
+    rl_batch = scst_batch(rl.model, rl.train.batch_size, seed=2)
+    write_batch_df(rl.model, rl_batch, tmp)
+
+    def case(cfg):
+        weights = Captioner(cfg.model, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
+        return {"cfg": cfg, "weights": weights.state_dict(),
+                "batch": train_batch(cfg.model, cfg.train.batch_size, 4)}
+    return {"xe": case(xe), "fallback": case(fallback),
+            "scst": {"cfg": rl, "weights": scst_weights, "batch": rl_batch},
+            "decode": {"images": EXTRACT_IMAGES,
+                       "batch_size": EXTRACT_BATCH}}
+
+
+def sp_xe(case, steps: int, device: str, mesh=None):
+    """``steps`` XE updates of ``case`` by a ``Trainer`` (over ``mesh``,
+    else one process, seed 3 either way): the trainer, the losses, the
+    step-1 gradients, the seconds and the launches."""
+    from image_caption_tpu_torch.train.loop import Trainer
+    trainer = (Trainer(case["cfg"], mesh=mesh, seed=3) if mesh is not None
+               else Trainer(case["cfg"], device=device, seed=3))
+    trainer.load_state_dict(case["weights"])
+    zero_launch_counts()
+    losses, grads = [], None
+    synchronize(device)
+    t0 = time.perf_counter()
+    for step in range(steps):
+        losses.append(trainer.train_step(*case["batch"])["loss"])
+        if step == 0:
+            grads = {n: p.grad.cpu() for n, p in
+                     trainer.state.model.named_parameters()}
+    synchronize(device)
+    return trainer, {"losses": losses, "grads": grads,
+                     "seconds": time.perf_counter() - t0,
+                     "launches": launch_counts()}
+
+
+def sp_worker(rank: int, world: int, workdir: str) -> int:
+    """``python chip_smoke.py sp-worker RANK WORLD DIR``: one rank of the
+    sequence-3 phase, on ``cuda:0`` over gloo (one sequence group of
+    ``world``), with every count and result written to
+    ``DIR/rank{RANK}.pt``."""
+    import torch
+    from image_caption_tpu_torch.parallel import distributed
+    from image_caption_tpu_torch.parallel.mesh import make_mesh
+    from image_caption_tpu_torch.serve import decode_split
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    device = "cuda:0" if torch.cuda.is_available() else "cpu"
+    join_group(workdir, world, rank, "gloo")
+    out = {}
+    try:
+        mesh = make_mesh([device], sequence=world)
+        for name, steps in (("xe", DP_STEPS), ("fallback", 1)):
+            trainer, out[name] = sp_xe(inputs[name], steps, device, mesh)
+            out[name]["grads"] = out[name]["grads"] if rank == 0 else None
+            out[name]["digest"] = params_digest(trainer.state.model)
+            out[name]["sharded"] = trainer.state.model.sp is not None
+            if name == "xe":
+                cfg, dec = inputs[name]["cfg"], inputs["decode"]
+                m = cfg.model
+                split = make_split(m, dec["images"], seed=0)
+                out["decode"] = {}
+                for label, beam in (("greedy", None), ("beam3", 3)):
+                    zero_launch_counts()
+                    caps = decode_split(
+                        trainer.decode_model(), cfg, split,
+                        dec["batch_size"],
+                        vocabulary(m.num_vocab), beam_size=beam,
+                        device=device, mesh=mesh)
+                    out["decode"][label] = {"captions": caps,
+                                            "launches": launch_counts()}
+            del trainer
+        out["scst"] = worker_scst(inputs["scst"], mesh, device)
+        out["scst"]["sharded"] = True
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def sp_references(inputs, device: str):
+    """The single-process runs the sequence-3 phase is held against, on
+    this process's card: 3 XE steps and ``decode_split`` of the 70-image
+    split greedy and beam 3 after them, 3 SCST steps
+    (``reference_scst``), one fallback step."""
+    from image_caption_tpu_torch.serve import decode_split
+    trainer, xe = sp_xe(inputs["xe"], DP_STEPS, device)
+    cfg = inputs["xe"]["cfg"]
+    split = make_split(cfg.model, EXTRACT_IMAGES, seed=0)
+    caps = {label: decode_split(
+        trainer.state.model, cfg, split, EXTRACT_BATCH,
+        vocabulary(cfg.model.num_vocab), beam_size=beam, device=device)
+        for label, beam in (("greedy", None), ("beam3", 3))}
+    _, fallback = sp_xe(inputs["fallback"], 1, device)
+    scst = inputs["scst"]
+    return {"xe": xe, "fallback": fallback, "caps": caps,
+            "model": trainer.state.model, "split": split,
+            "scst": reference_scst(scst["cfg"], scst["weights"],
+                                   scst["batch"], device)}
+
+
+def drive_sp_world3(xe_cfg, fallback_cfg, rl_cfg, scst_weights, card: str,
+                    device: str = "cuda"):
+    """Sequence parallelism: three ranks (``chip_smoke.py sp-worker``) on
+    one card over gloo as one sequence group, full width, against one
+    process here (``sp_inputs``): 3 XE steps of the 21-slot preset at
+    residual dropout 0.3
+    (7 slots a rank: kernels #1 and #2 at Lq 7 against Lk 21; losses 2e-4,
+    step-1 gradients 1e-4, the ranks' weights bitwise equal), then
+    ``decode_split`` of 70 images greedy and beam 3 on every slot
+    (captions equal but at ties); 3 pipelined argmax SCST steps of the RL
+    flagship at 36 slots (12 a rank: the pair block and the causal
+    encoder mask cross the blocks; samples equal but at a top-2 margin
+    below MARGIN); one XE step of the flagship at its 37 slots, which 3 do
+    not divide (every rank runs every slot).  Functional only: three
+    ranks share one card.  Returns each rank's launches per path."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = sp_inputs(xe_cfg, fallback_cfg, rl_cfg, scst_weights, tmp)
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        procs = start_world2("sp-worker", tmp, SP_WORLD)
+        try:
+            refs = sp_references(inputs, device)
+        finally:
+            ranks = finish_world2("sp world 3", procs, tmp)
+        seconds = time.perf_counter() - t0
+    label = "sp world 3"
+    print(f"{label}: a sequence group of three on one card over gloo, "
+          f"done in {seconds:.1f} s; slot-sharded: xe "
+          f"{[r['xe']['sharded'] for r in ranks]}, fallback "
+          f"{[r['fallback']['sharded'] for r in ranks]}", flush=True)
+    if not (all(r["xe"]["sharded"] for r in ranks)
+            and not any(r["fallback"]["sharded"] for r in ranks)):
+        raise AssertionError(f"{label}: the slots were not split as the "
+                             "axis divides them")
+    check_xe_ranks(label, ranks, refs["xe"]["losses"], refs["xe"]["grads"])
+    check_xe_ranks(label, ranks, refs["fallback"]["losses"],
+                   refs["fallback"]["grads"], key="fallback")
+    check_scst_ranks(label, ranks, refs["scst"], lambda r: slice(None))
+    check_decode_ranks(label, ranks, refs, inputs["xe"]["cfg"])
+    xe_m, rl_m = inputs["xe"]["cfg"].model, inputs["scst"]["cfg"].model
+    xe_calls = encoder_launches(xe_m) + 2 * xe_m.decode_num_blocks
+    rl_calls = encoder_launches(rl_m) + 2 * rl_m.decode_num_blocks
+    n_batches = -(-EXTRACT_IMAGES // EXTRACT_BATCH)
+    by_rank = []
+    for rank, r in enumerate(ranks):
+        counts = rank_launches(r)
+        by_rank.append(counts)
+        print(f"{label} rank {rank}: launches {counts}, fallback "
+              f"{r['fallback']['launches']}; steps/s xe "
+              f"{DP_STEPS / r['xe']['seconds']:.3f}, scst "
+              f"{DP_STEPS / r['scst']['seconds']:.3f} (three ranks sharing "
+              f"one card over gloo: a functional check, not a scaling "
+              f"figure) [{card}]", flush=True)
+        if device == "cpu":
+            continue
+        check_launches(f"{label} rank {rank}", counts, {
+            "train": (xe_calls * DP_STEPS,) * 2,
+            "scst": (rl_calls * DP_STEPS,) * 2,
+            "decode": (encoder_launches(xe_m) * 2 * n_batches, 0)})
+        check_launches(f"{label} rank {rank} fallback",
+                       {"fallback": r["fallback"]["launches"]},
+                       {"fallback": (LAUNCHES_PER_STEP,) * 2})
+    return by_rank
 
 
 SCAN_K, SCAN_BATCHES = 4, 12
@@ -3664,7 +3930,7 @@ def drive_sharded_extract(params, cfg, card: str, device: str = "cuda"):
         "features": whole[0][rows].numpy(),
         "positions": whole[1][rows][..., :m.dim_positions].numpy()})
     ties = caption_ties(model, cfg, split, [one[i] for i in rows],
-                        [sharded[i] for i in rows], None, EXTRACT_BATCH)
+                        [sharded[i] for i in rows], None, "mesh caption")
     print(f"mesh caption: {EXTRACT_IMAGES} JPEGs over 2 replicas in "
           f"{seconds:.3f} s, launches {caption_launches} (want 3 of #1 and "
           f"4 of #4 a batch a replica); captions equal to one device's at "
@@ -3804,6 +4070,9 @@ def main() -> int:
     tp2_launches = drive_tp_world2(get_preset(XE_PRESET), flagship,
                                    scst_weights, world2_refs, card)
     del world2_refs
+    sp3_launches = drive_sp_world3(get_preset(SP_PRESET),
+                                   get_preset(XE_PRESET), flagship,
+                                   scst_weights, card)
     profile_launches = drive_profile(xe, card)
 
     t0 = time.perf_counter()
@@ -3852,13 +4121,15 @@ def main() -> int:
                 "shapes": rows}
 
     def dp(kernel):
-        """A kernel's launches on the scanned, data- and tensor-parallel
-        and profile paths: the world-2 paths summed over both ranks."""
+        """A kernel's launches on the scanned, data-, tensor- and
+        sequence-parallel and profile paths: the multi-rank paths summed
+        over their ranks."""
         return {"scan_train": scan_launches.get(kernel, 0),
                 "dp_train": dp1_launches.get(kernel, 0),
-                **{f"{w}2_{p}": sum(r[p].get(kernel, 0) for r in ranks)
-                   for w, ranks in (("dp", dp2_launches),
-                                    ("tp", tp2_launches))
+                **{f"{w}_{p}": sum(r[p].get(kernel, 0) for r in ranks)
+                   for w, ranks in (("dp2", dp2_launches),
+                                    ("tp2", tp2_launches),
+                                    ("sp3", sp3_launches))
                    for p in ("train", "scst", "decode")},
                 "profile_train": profile_launches.get(kernel, 0),
                 "sharded_extract": sharded_launches.get(kernel, 0),
@@ -3928,6 +4199,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["sp-worker"]:
+        sys.exit(sp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] in (["dp-worker"], ["tp-worker"]):
         world = int(sys.argv[3])
         sys.exit(dp_worker(int(sys.argv[2]), world, sys.argv[4],

@@ -22,7 +22,10 @@ training, with dropout at the config's rates when a generator is given;
 ``Captioner.logits`` is its deterministic, gradient-free form for serving.
 Under tensor parallelism (``parallel.tensor.shard_model``) the forward
 gives this rank's vocabulary slice of the logits, and the losses here
-read it through ``vocab_parallel_cross_entropy``.
+read it through ``vocab_parallel_cross_entropy``.  Under sequence
+parallelism (``parallel.sequence.shard_sequence``) the forward takes this
+rank's block of the slots, runs the encoder on it and the decoder on the
+encoder's output gathered over the sequence group.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..config import ModelConfig
 from ..ops import masks as M
 from ..ops.attention import dropout
 from ..parallel.mesh import global_mean
+from ..parallel.sequence import SequenceShard
 from ..parallel.tensor import ModelShard, vocab_parallel_cross_entropy
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.rng import split
@@ -84,15 +88,24 @@ class Encoder(nn.Module):
                 position_features: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = True,
-                use_kernel: bool = False, need_weights: bool = False):
-        """Returns (output [B, S, D], per-block attention weights or Nones)."""
+                use_kernel: bool = False, need_weights: bool = False,
+                sequence: Optional[SequenceShard] = None):
+        """Returns (output [B, S, D], per-block attention weights or Nones).
+        With ``sequence`` the inputs and the output are this rank's block
+        of the slots, [B, S/n, ...]: the whole-image row comes from
+        sequence index 0, the attention reads every slot's keys over the
+        sequence group, and the mask rows are the block's."""
         cfg = self.cfg
         gens = split(generator, cfg.encode_num_blocks + 1)
         if cfg.split_image_objects:
             b, s, df = object_features.shape
             dp = position_features.shape[-1]
-            img_f = object_features[:, :1].expand(b, s, df)
-            img_p = position_features[:, :1].expand(b, s, dp)
+            first = torch.cat([object_features[:, :1],
+                               position_features[:, :1]], dim=-1)
+            if sequence is not None:
+                first = sequence.broadcast_first(first)
+            img_f = first[..., :df].expand(b, s, df)
+            img_p = first[..., df:].expand(b, s, dp)
             # [B*S, 2, .]: token 0 = whole image, token 1 = the object
             # (model.py:262-271)
             feature = torch.stack([img_f, object_features], dim=2).reshape(
@@ -108,10 +121,12 @@ class Encoder(nn.Module):
             emb_f = self.feature_embedding(feature)
             emb_p = self.position_embedding(position)
             out = self.norm(emb_f + emb_p)
+            # one row a (batch row, slot): the slots' part is dim 0's
             out, _ = self.image_encoder(
                 out, non_pad_mask=non_pad, attention_mask=pair_mask,
                 generator=gens[0], deterministic=deterministic,
-                use_kernel=use_kernel, need_weights=False)
+                use_kernel=use_kernel, need_weights=False,
+                slots=None if sequence is None else sequence.part(0))
             d = out.shape[-1]
             output = out[:, 1, :].reshape(b, s, d) + \
                 emb_p[:, 1, :].reshape(b, s, d)
@@ -131,17 +146,24 @@ class Encoder(nn.Module):
 
         b, s = position_features.shape[0], position_features.shape[1]
         non_pad = M.non_pad_mask_from_features(position_features)
+        keys = (position_features if sequence is None
+                else sequence.gather(position_features))
         # encoder-mask quirk: key-pad OR causal over object slots
-        # (model.py:311-319)
+        # (model.py:311-319), the rows of this block's slots
         self_mask = M.combine_masks(
-            M.key_pad_mask_from_features(position_features, s),
-            M.subsequent_mask(b, s, device=position_features.device))
+            M.key_pad_mask_from_features(keys, s),
+            M.subsequent_mask(b, keys.shape[1], device=keys.device,
+                              rows=None if sequence is None
+                              else sequence.block))
 
         attentions = []
         for i, block in enumerate(self.encoder):
             masks = (dict(non_pad_mask=non_pad, attention_mask=self_mask)
                      if cfg.encode_mask else {})
-            output, attn = block(output, **masks, generator=gens[1 + i],
+            shard = ({} if sequence is None else
+                     dict(kv=sequence.gather(output), slots=sequence.part(1)))
+            output, attn = block(output, **masks, **shard,
+                                 generator=gens[1 + i],
                                  deterministic=deterministic,
                                  use_kernel=use_kernel,
                                  need_weights=need_weights)
@@ -258,8 +280,9 @@ class Captioner(nn.Module):
         self.classifer = L.Linear(cfg.decode_input_size, cfg.num_vocab,
                                   bias=True, generator=generator,
                                   kernel_init=L.normal_fan_sum)
-        # this rank's place in its model group once sharded
+        # this rank's place in its model and sequence groups once sharded
         self.tp: Optional[ModelShard] = None
+        self.sp: Optional[SequenceShard] = None
         self.to(device)
 
     @property
@@ -275,13 +298,17 @@ class Captioner(nn.Module):
         vocabulary, under tensor parallelism), differentiable.  Dropout
         runs at the config's rates when ``generator`` (on the model's
         device) is given and ``deterministic`` is False; the counterpart of
-        the JAX package's ``captioner_logits``."""
-        dev = self.device
+        the JAX package's ``captioner_logits``.  Under sequence parallelism
+        (``self.sp``) the features and positions are this rank's block of
+        the slots; the logits are whole."""
+        dev, sp = self.device, self.sp
         object_features = torch.as_tensor(object_features, device=dev)
         position_features = torch.as_tensor(position_features, device=dev)
         input_caption = torch.as_tensor(target_caption,
                                         device=dev)[:, :-1].long()
-        context_mask = M.key_pad_mask_from_features(position_features,
+        keys = (position_features if sp is None
+                else sp.gather(position_features))
+        context_mask = M.key_pad_mask_from_features(keys,
                                                     input_caption.shape[1])
         enc_gen, dec_gen = split(generator, 2)
         dtype = compute_dtype(self.cfg)
@@ -289,7 +316,9 @@ class Captioner(nn.Module):
                                         position_features.to(dtype),
                                         generator=enc_gen,
                                         deterministic=deterministic,
-                                        use_kernel=use_kernel)
+                                        use_kernel=use_kernel, sequence=sp)
+        if sp is not None:
+            encode_output = sp.gather(encode_output)
         decode_output, _, _ = self.decoder(
             input_caption, encode_output,
             context_attention_mask=context_mask, generator=dec_gen,

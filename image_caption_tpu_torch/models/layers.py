@@ -17,6 +17,12 @@ Dropout runs where the JAX package's runs, at the module's rates, when a
 ``generator`` is given and ``deterministic`` is False.  The generator is
 split per site as the JAX code splits its rng (``utils/rng.split``).  Every
 initializer takes a CPU ``torch.Generator``.
+
+Under sequence parallelism (``parallel/sequence.py``) the blocks run on a
+rank's slots: ``slots`` (an ``ops.attention.Part`` of the [B, L, D]
+activations) places them among all of them for the dropouts, and an
+encoder block's attention takes its keys and values from ``kv``, every
+slot gathered.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import dropout, sdp_attention
+from ..ops.attention import Part, dropout, sdp_attention
 from ..utils.rng import split
 
 
@@ -128,7 +134,8 @@ class MultiHeadAttention(nn.Module):
     """Post-norm residual MHA: ``LayerNorm(dropout(joint(attn)) + q_in)``
     (modules.py:30-92).  Under tensor parallelism
     (``parallel.tensor.shard_model``) it runs ``num_heads`` of the heads,
-    ``dropout_heads`` ``(start, total)`` placing them among all of them."""
+    ``dropout_heads`` (the ``Part`` of dim 1 of the attention weights)
+    placing them among all of them."""
 
     def __init__(self, input_size: int, q_k_dim: int, v_dim: int,
                  num_heads: int, *, generator: torch.Generator,
@@ -137,7 +144,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.attention_dropout = attention_dropout
-        self.dropout_heads: Optional[Tuple[int, int]] = None
+        self.dropout_heads: Optional[Part] = None
 
         def lin(i, o):
             return Linear(i, o, bias=False, generator=generator,
@@ -153,22 +160,30 @@ class MultiHeadAttention(nn.Module):
     def forward(self, q_in, k_in, v_in, mask, *,
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = True, use_kernel: bool = False,
-                need_weights: bool = True
+                need_weights: bool = True, slots: Optional[Part] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``slots``: the queries' ``Part`` of the [B, Lq, D] activations
+        (dim 0 where each row of the batch is folded with its slots, as in
+        the pair block; dim 1 for the slots themselves), the keys whole."""
         q = split_heads(self.q_linear(q_in), self.num_heads)
         k = split_heads(self.k_linear(k_in), self.num_heads)
         v = split_heads(self.v_linear(v_in), self.num_heads)
         temperature = math.sqrt(q.shape[-1])
         attn_gen, out_gen = split(generator, 2)
+        parts = [] if self.dropout_heads is None else [self.dropout_heads]
+        if slots is not None:
+            # the queries' dim of the weights [B, H, Lq, Lk]
+            parts.append((0 if slots[0] == 0 else 2, *slots[1:]))
         out, attn = sdp_attention(q, k, v, mask, temperature,
                                   dropout_rate=self.attention_dropout,
                                   generator=attn_gen,
                                   deterministic=deterministic,
                                   use_kernel=use_kernel,
                                   need_weights=need_weights,
-                                  dropout_heads=self.dropout_heads)
+                                  dropout_parts=parts)
         out = self.joint_linear(merge_heads(out))
-        out = dropout(out, self.dropout_rate, out_gen, deterministic)
+        out = dropout(out, self.dropout_rate, out_gen, deterministic,
+                      () if slots is None else (slots,))
         return self.layer_norm(out + q_in), attn
 
 
@@ -190,10 +205,12 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                slots: Optional[Part] = None) -> torch.Tensor:
         h = torch.relu(self.position_wise_1(x))
         h = self.position_wise_2(h)
-        h = dropout(h, self.dropout_rate, generator, deterministic)
+        h = dropout(h, self.dropout_rate, generator, deterministic,
+                    () if slots is None else (slots,))
         return self.layer_norm(h + x)
 
 
@@ -214,14 +231,19 @@ class EncoderBlock(nn.Module):
     def forward(self, x, *, non_pad_mask=None, attention_mask=None,
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = True,
-                use_kernel: bool = False, need_weights: bool = True):
+                use_kernel: bool = False, need_weights: bool = True,
+                kv: Optional[torch.Tensor] = None,
+                slots: Optional[Part] = None):
+        """``kv``: the keys' and values' input (``x`` when None);
+        ``slots``: ``x``'s ``Part`` (``MultiHeadAttention.forward``)."""
         g1, g2 = split(generator, 2)
+        kv = x if kv is None else kv
         out, attn = self.multihead_attention(
-            x, x, x, attention_mask, generator=g1,
+            x, kv, kv, attention_mask, generator=g1,
             deterministic=deterministic, use_kernel=use_kernel,
-            need_weights=need_weights)
+            need_weights=need_weights, slots=slots)
         out = self.feed_forward(out, generator=g2,
-                                deterministic=deterministic)
+                                deterministic=deterministic, slots=slots)
         if non_pad_mask is not None:
             out = out * non_pad_mask.to(out.dtype)
         return out, attn

@@ -21,7 +21,7 @@ Shapes: q [B, H, Lq, Dh], k/v [B, H, Lk, Dh], mask bool [B, Lq, Lk]
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -30,24 +30,32 @@ from . import _build
 _NEG_INF = float("-inf")
 
 
+# a part of a dim that ``dropout`` draws whole, ``(dim, start, count,
+# total)``: ``x``'s dim ``dim`` is runs of ``count`` entries, each of them
+# entries ``start`` to ``start + count`` of ``total`` (one run when the dim
+# is the part alone; one per row when rows are folded into it)
+Part = Tuple[int, int, int, int]
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            deterministic: bool,
-            heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            deterministic: bool, parts: Sequence[Part] = ()) -> torch.Tensor:
     """Inverted dropout (scale by 1/(1-p) in training).  Without a
     generator it is off, as the JAX version is without an rng.  The mask is
     drawn on ``x``'s device, so the generator must lie there too (a CUDA
-    generator for a CUDA tensor).  ``heads`` ``(start, total)``: ``x``
-    [B, h, ...] holds heads ``start`` to ``start + h`` of ``total`` (one
-    rank's under tensor parallelism); the mask is drawn for all ``total``
-    heads and this slice kept, the bits one process draws for them."""
+    generator for a CUDA tensor).  ``parts``: ``x`` is one rank's part of
+    what one process holds (its heads under tensor parallelism, its slots
+    under sequence parallelism); the mask is drawn for the whole and this
+    part kept, the bits one process draws for it."""
     if deterministic or rate == 0.0 or generator is None:
         return x
-    shape = x.shape if heads is None else (x.shape[0], heads[1],
-                                           *x.shape[2:])
+    shape = list(x.shape)
+    for dim, _, count, total in parts:
+        shape[dim] = shape[dim] // count * total
     keep = torch.rand(shape, generator=generator, device=x.device) >= rate
-    if heads is not None:
-        keep = keep[:, heads[0]:heads[0] + x.shape[1]]
+    for dim, start, count, total in parts:
+        keep = keep.unflatten(dim, (-1, total)).narrow(
+            dim + 1, start, count).flatten(dim, dim + 1)
     return torch.where(keep, x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -67,9 +75,10 @@ def attention_reference(q, k, v, mask, temperature, *,
                         dropout_rate: float = 0.0,
                         generator: Optional[torch.Generator] = None,
                         deterministic: bool = True,
-                        dropout_heads: Optional[Tuple[int, int]] = None):
+                        dropout_parts: Sequence[Part] = ()):
     """Plain path: scores and weighted sum in f32, output in q's dtype;
-    ``dropout_heads`` as ``dropout``'s ``heads``."""
+    ``dropout_parts`` as ``dropout``'s ``parts`` of the weights
+    [B, H, Lq, Lk]."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float() / temperature,
                           k.float())
     if mask is not None:
@@ -78,7 +87,7 @@ def attention_reference(q, k, v, mask, temperature, *,
     else:
         attn = torch.softmax(scores, dim=-1)
     attn_dropped = dropout(attn, dropout_rate, generator, deterministic,
-                           dropout_heads)
+                           dropout_parts)
     out = torch.einsum("bhqk,bhkd->bhqd", attn_dropped, v.float())
     return out.to(q.dtype), attn
 
@@ -282,7 +291,7 @@ def sdp_attention(q, k, v, mask, temperature, *,
                   deterministic: bool = True,
                   use_kernel: bool = False,
                   need_weights: bool = True,
-                  dropout_heads: Optional[Tuple[int, int]] = None
+                  dropout_parts: Sequence[Part] = ()
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Dispatch between the fused kernel and the plain path.
 
@@ -304,5 +313,5 @@ def sdp_attention(q, k, v, mask, temperature, *,
                                     dropout_rate=dropout_rate,
                                     generator=generator,
                                     deterministic=deterministic,
-                                    dropout_heads=dropout_heads)
+                                    dropout_parts=dropout_parts)
     return out, (attn if need_weights else None)

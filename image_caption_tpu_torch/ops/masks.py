@@ -11,6 +11,8 @@ reference fills ``-inf`` at True positions, modules.py:20-21).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -29,12 +31,16 @@ def key_pad_mask_from_tokens(tokens: torch.Tensor, q_len: int,
     return pad[:, None, :].expand(pad.shape[0], q_len, pad.shape[1])
 
 
-def subsequent_mask(batch: int, length: int,
-                    device=None) -> torch.Tensor:
-    """Strictly upper-triangular bool [B, L, L] (model.py:346-352)."""
+def subsequent_mask(batch: int, length: int, device=None,
+                    rows: Optional[slice] = None) -> torch.Tensor:
+    """Strictly upper-triangular bool [B, L, L] (model.py:346-352); with
+    ``rows``, its query rows at those global offsets, [B, len(rows), L]
+    (one rank's slots under sequence parallelism)."""
     tri = torch.ones((length, length), dtype=torch.bool,
                      device=device).triu(diagonal=1)
-    return tri[None].expand(batch, length, length)
+    if rows is not None:
+        tri = tri[rows]
+    return tri[None].expand(batch, *tri.shape)
 
 
 def non_pad_mask_from_features(features: torch.Tensor) -> torch.Tensor:

@@ -46,7 +46,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..models import layers as L
-from .mesh import Mesh, all_gather
+from .mesh import Mesh, all_gather, all_reduce
 
 
 @dataclass(frozen=True)
@@ -66,13 +66,6 @@ class ModelShard:
         return slice(self.index * per, (self.index + 1) * per)
 
 
-def _all_reduce(x: torch.Tensor, shard: ModelShard,
-                op=dist.ReduceOp.SUM) -> torch.Tensor:
-    out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=shard.group)
-    return out
-
-
 class _CopyToModel(torch.autograd.Function):
     """Identity forward; all-reduce of the gradient backward."""
 
@@ -83,7 +76,7 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad, ctx.shard), None
+        return all_reduce(ctx.shard.group, grad), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -91,7 +84,7 @@ class _ReduceFromModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, shard):
-        return _all_reduce(x, shard)
+        return all_reduce(shard.group, x)
 
     @staticmethod
     def backward(ctx, grad):
@@ -128,15 +121,16 @@ class _VocabParallelCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, target, shard):
         n = logits.shape[-1]
-        m = _all_reduce(logits.max(dim=-1).values, shard, dist.ReduceOp.MAX)
+        m = all_reduce(shard.group, logits.max(dim=-1).values,
+                       dist.ReduceOp.MAX)
         z = logits - m[:, None]
         e = z.exp()
-        s = _all_reduce(e.sum(dim=-1), shard)
+        s = all_reduce(shard.group, e.sum(dim=-1))
         local = target - shard.index * n
         inside = (local >= 0) & (local < n)
         idx = local.clamp(0, n - 1)
-        t = _all_reduce(z.gather(1, idx[:, None])[:, 0]
-                        * inside.to(z.dtype), shard)
+        t = all_reduce(shard.group, z.gather(1, idx[:, None])[:, 0]
+                       * inside.to(z.dtype))
         ctx.save_for_backward(e / s[:, None], idx, inside)
         return s.log() - t
 
@@ -242,8 +236,8 @@ def shard_model(model: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
                     getattr(mod, name), shard, "attention width"))
             mod.joint_linear = RowParallelLinear(mod.joint_linear, shard,
                                                  "attention width")
-            mod.dropout_heads = (heads.start, mod.num_heads)
-            mod.num_heads = heads.stop - heads.start
+            mod.num_heads, total = heads.stop - heads.start, mod.num_heads
+            mod.dropout_heads = (1, heads.start, mod.num_heads, total)
         elif isinstance(mod, L.FeedForward):
             _shard_ffn(mod, shard)
     dec = model.decoder

@@ -19,11 +19,12 @@ a train step, 13 of #1 an eval); at the presets' 0.1 the plain path runs.
 
 With a process-group ``mesh`` each rank samples, scores and updates its
 data index's rows of the global batch; the loss is normalised over the
-global batch and the gradients are summed over the data group
+global batch and the gradients are summed over the reduce group
 (``train.step.apply_update``).  The sample stream folds the data index in
 with the dropout stream (the caller's ``seed``); the deterministic eval's
-categorical draws fold it into seed 0.  So the ranks of a model group,
-which sample from the same gathered logits, draw the same sequences.
+categorical draws fold it into seed 0.  So the ranks of a model or
+sequence group, which sample from the same whole logits, draw and score
+the same sequences.
 """
 
 from __future__ import annotations

@@ -23,10 +23,13 @@ Data parallelism (``train.data_axis``; ``parallel.mesh``): every process
 runs the loop in lockstep on the same global batches and steps on its
 data index's rows, one device each; the losses it reports are global.
 Tensor parallelism (``train.model_axis`` k > 1, ``parallel.tensor``): the
-k ranks of a data index hold one slice each of the sharded parameters and
+k ranks of a model group hold one slice each of the sharded parameters and
 run the same rows and the same dropout; decode (samples, the epoch's valid
 decode, the RL eval) runs on a full replica gathered from the shards once
-per update.  Only the main process (rank 0) writes: log lines,
+per update.  Sequence parallelism (a mesh of ``make_mesh(sequence=n)``,
+``parallel.sequence``; no config field names it, as in the JAX package):
+the n ranks of a sequence group hold the same rows, one block each of the
+object slots, and whole parameters; decode runs on every slot.  Only the main process (rank 0) writes: log lines,
 TensorBoard, sample captions, the candidates pickle and the scores file;
 it saves the checkpoint, in the full layout, behind a barrier, and every
 rank restores it.
@@ -72,14 +75,14 @@ class Trainer:
     weights come from seed ``fold_in(seed, 0)`` and the dropout keys from
     ``fold_in(seed, 1)``; ``seed`` defaults to ``cfg.train.seed``.
 
-    ``mesh`` (``parallel.mesh.make_mesh``): data and tensor parallelism
-    over a process group, one device per process, which the trainer runs
-    on.  Rank 0's weights are broadcast at construction, then sharded over
-    the model axis; every host batch the trainer is given is the global
-    batch, of which it steps on its data index's rows; data index ``d > 0``
-    draws its dropout from ``fold_in(key, d)``, so data index 0 keeps the
-    single-process stream, and the ranks of a model group draw the same
-    masks."""
+    ``mesh`` (``parallel.mesh.make_mesh``): data, tensor and sequence
+    parallelism over a process group, one device per process, which the
+    trainer runs on.  Rank 0's weights are broadcast at construction, then
+    sharded over the model axis; every host batch the trainer is given is
+    the global batch, of which it steps on its data index's rows (and its
+    sequence index's slots); data index ``d > 0`` draws its dropout from
+    ``fold_in(key, d)``, so data index 0 keeps the single-process stream,
+    and the ranks of a model or sequence group draw the same masks."""
 
     def __init__(self, cfg: Config, *, mesh: Optional[Mesh] = None,
                  device: DeviceLike = None, seed: Optional[int] = None):
@@ -101,11 +104,16 @@ class Trainer:
         self._replica: Optional[tuple] = None     # (step, full model)
 
     def shard(self, batch):
-        """This rank's rows of a global host batch's (features, positions,
-        captions); all of them without a mesh."""
+        """This rank's block of a global host batch's (features, positions,
+        captions): the rows of its data index, and the features' and
+        positions' slots of its sequence index where the axis divides
+        them, as the JAX package's ``Trainer.shard`` places them; all of
+        it without a mesh."""
         batch = tuple(batch[:3])
-        return batch if self.mesh is None else shard_batch(self.mesh,
-                                                           batch)[0]
+        if self.mesh is None:
+            return batch
+        return shard_batch(self.mesh, batch,
+                           num_slots=self.cfg.model.num_slots)[0]
 
     def to_device(self, batch):
         """This rank's rows of a global host batch (numpy or tensors) on
@@ -118,7 +126,9 @@ class Trainer:
         ``train_steps_device``."""
         batches = [tuple(b[:3]) for b in batches]
         stacked = (tree_stack(batches) if self.mesh is None
-                   else shard_batch_stacked(self.mesh, batches)[0])
+                   else shard_batch_stacked(
+                       self.mesh, batches,
+                       num_slots=self.cfg.model.num_slots)[0])
         return to_device(stacked, self.device)
 
     def load_state_dict(self, state) -> None:
@@ -136,7 +146,9 @@ class Trainer:
         """The model that decodes: the trained one, or under tensor
         parallelism a full replica gathered from the shards (a collective:
         every rank of the model group calls it), made once per update and
-        reused."""
+        reused.  Decoding runs the encoder on every slot; the replica's
+        teacher-forced forward (the RL eval) takes this rank's slots, as
+        the trained model's does."""
         model = self.state.model
         if model.tp is None:
             return model
@@ -144,6 +156,7 @@ class Trainer:
             replica = (Captioner(self.cfg.model, device=self.device)
                        if self._replica is None else self._replica[1])
             replica.load_state_dict(full_state_dict(model))
+            replica.sp = model.sp
             self._replica = (self.state.step, replica)
         return self._replica[1]
 

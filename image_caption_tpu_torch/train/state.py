@@ -7,6 +7,8 @@ state is the live ``Captioner``, a ``torch.optim.Adam`` over its
 parameters, and the number of updates taken.  Under tensor parallelism
 the model holds this rank's shards (``parallel.tensor``) and Adam steps
 them: its update is elementwise, so that is the full update's slice.
+Under sequence parallelism the parameters are whole and the model runs on
+this rank's slots (``parallel.sequence``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from ..config import Config
 from ..models.captioner import Captioner
 from ..parallel.mesh import Mesh, broadcast_params
+from ..parallel.sequence import shard_sequence
 from ..parallel.tensor import shard_model
 from ..utils.device import DeviceLike
 
@@ -46,11 +49,11 @@ def create_train_state(cfg: Config, *, device: DeviceLike = None,
     ``device`` (the card when None), its optimizer, and step 0.  Over a
     process-group ``mesh`` rank 0's weights are broadcast first, then the
     model is sharded over the model axis, and the optimizer holds the
-    shards."""
+    shards; over a sequence axis it runs on this rank's slots."""
     model = Captioner(cfg.model, device=device,
                       generator=torch.Generator().manual_seed(seed))
     broadcast_params(mesh, model)
-    model = shard_model(model, mesh)
+    model = shard_sequence(shard_model(model, mesh), mesh)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(model.parameters(),
                                                cfg.train.learning_rate))

@@ -9,13 +9,15 @@ one ``train.scan_steps`` dispatch as a loop, where the JAX package scans.
 
 With a process-group ``mesh`` each rank steps on its data index's rows of
 the global batch: the loss is the global one (``parallel.mesh.global_mean``
-over the data group), and the gradients are summed over the data group,
-flat, before the pad row is zeroed and Adam steps, so the ranks of a data
-group apply the same update and their weights stay bitwise equal.  Under
-tensor parallelism the model holds this rank's shards and its collectives
-run inside the forward and backward (``parallel.tensor``).  The caller
-folds the data index into ``seed`` (``Trainer`` does), so the data indices
-draw different dropout masks and the ranks of a model group the same.
+over the reduce group), and the gradients are summed over the reduce
+group, flat, before the pad row is zeroed and Adam steps, so the ranks of
+a reduce group apply the same update and their weights stay bitwise
+equal.  Under tensor parallelism the model holds this rank's shards and
+its collectives run inside the forward and backward (``parallel.tensor``);
+under sequence parallelism it runs on this rank's slots
+(``parallel.sequence``).  The caller folds the data index into ``seed``
+(``Trainer`` does), so the data indices draw different dropout masks and
+the ranks of a model or sequence group the same.
 
 The steps ask for the fused attention kernels (``use_kernel=True``, as
 ``serve.decode_split`` does), and ``sdp_attention``'s dispatch rule

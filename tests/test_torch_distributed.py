@@ -14,8 +14,16 @@ model=2``): XE, focal (with the decoder's tail FFN) and pipelined argmax
 SCST against the JAX package's sharded steps (losses 2e-4, full-layout
 gradients and weights 1e-4) and one process (1e-5), the pad row frozen,
 a focal run at the presets' dropout against one process (1e-5), greedy
-and beam-2 ``decode_split``, and a checkpoint that crosses model axes.
-``tests/test_torch_tensor_parallel.py`` runs data 2 x model 2.
+and beam-2 ``decode_split``, and a checkpoint that crosses model axes.  Sequence parallel (sequence 2,
+the JAX mesh ``data=1, sequence=2``): XE on the flagship family at 8
+slots (the pair block and the encoder mask cross the shards), focal with
+the decoder's tail FFN, the fallback at 7 slots, pipelined argmax SCST,
+a scanned dispatch of 2 steps on slot-sharded stacked batches, each
+against the JAX package's mesh (losses 2e-4, weights 1e-4) and one
+process (1e-5); the presets' dropout against one process (1e-5);
+``decode_split`` greedy and beam 2; a checkpoint that crosses sequence
+axes.  ``tests/test_torch_tensor_parallel.py`` runs data 2 x model 2,
+data 2 x sequence 2 and model 2 x sequence 2.
 """
 
 import os
@@ -65,6 +73,8 @@ NARROW = dict(TINY, **{f"model.{k}": 32 for k in (
     **{"model.encode_num_heads": 4, "model.encode_num_blocks": 2,
        "model.decode_num_heads": 4, "model.decode_num_blocks": 2})
 RL = "RL_maxlen49_36obj_1wordCount_256_25b_32h_split_img_obj"
+# the flagship's XE counterpart: the pair block and the encoder mask
+SPLIT = "maxlen49_36obj_1wordCount_256_25b_32h_split_img_obj"
 FOCAL = "maxlen49_36obj_1wordCount_256_25b_32h_FocalLoss"
 # caption lengths of the global batch's 8 rows: rank 0 holds short
 # captions, rank 1 long ones, so the ranks' non-pad target counts differ
@@ -74,6 +84,9 @@ TP_STEPS = 3
 # the tensor-parallel cases' depth: one block of each kind (the flagship's
 # pair block too), the layers' sharding checked at the least compile time
 SHALLOW = {"model.encode_num_blocks": 1, "model.decode_num_blocks": 1}
+# 8 slots, which a sequence axis of 2 divides (NARROW's 7 do not)
+SP_SLOTS = {"model.num_objects": 7}
+SP = (1, 1, WORLD)
 KEYS = ("loss", "language_model_loss", "structure_loss", "reward")
 
 
@@ -144,6 +157,17 @@ def _jax_tp(cfg, mesh, batches, vocab=None):
     ref = JRLTrainer(cfg, vocab, mesh=mesh, rng=rng, two_phase=True)
     scored = _record_scores(ref)
     return _jax_steps(ref, batches) + (scored,)
+
+
+def _jax_scan(cfg, mesh, batches):
+    """One scanned dispatch of ``batches`` by a JAX trainer on ``mesh``:
+    the losses [K], the weights after, and the stacked features'
+    partition spec."""
+    trainer = JTrainer(cfg, mesh=mesh, rng=jax.random.PRNGKey(0))
+    stacked = trainer.shard_stacked(batches)
+    losses = np.asarray(trainer.train_steps_device(stacked)["loss"])
+    return (losses, jax.device_get(trainer.state.params),
+            str(stacked[0].sharding.spec))
 
 
 def _record_scores(trainer):
@@ -245,6 +269,27 @@ def dp(tmp_path_factory):
     inputs["tp_dropout"] = dict(inputs["tp_focal"],
                                 cfg=get_preset(FOCAL).with_overrides(
                                     **{**NARROW, **SHALLOW}))
+    # sequence parallel, data 1 x sequence 2 (the JAX mesh data=1,
+    # sequence=2); sp_fallback's 7 slots do not divide
+    jmesh_sp = jax_mesh(jax.devices()[:WORLD], data=1, sequence=WORLD)
+    sp_cfgs = {}
+    for name, preset, over, extra in (
+            ("sp_xe", SPLIT, {**NARROW, **SP_SLOTS}, {}),
+            ("sp_focal", FOCAL, {**NARROW, **SP_SLOTS}, {}),
+            ("sp_fallback", SPLIT, NARROW, {}),
+            ("sp_scst", RL, {**NARROW, **SP_SLOTS},
+             {"vocab": vocab, "df_dir": work / "df_sp"})):
+        sp_cfgs[name], inputs[name], initial[name] = _tp_case(
+            preset, over, 60, SP, **extra)
+    scan_over = {"train.scan_steps": 2}
+    sp_cfgs["sp_scan"] = sp_cfgs["sp_xe"].with_overrides(**scan_over)
+    inputs["sp_scan"] = dict(
+        inputs["sp_xe"], kind="scan",
+        cfg=inputs["sp_xe"]["cfg"].with_overrides(**scan_over),
+        batches=inputs["sp_xe"]["batches"][:2])
+    inputs["sp_dropout"] = dict(inputs["sp_xe"],
+                                cfg=get_preset(SPLIT).with_overrides(
+                                    **{**NARROW, **SP_SLOTS, **SHALLOW}))
     ckpt_dir = work / "ckpt"
     inputs["tp_checkpoint"] = {
         "kind": "checkpoint", "cfg": inputs["tp_focal"]["cfg"],
@@ -252,6 +297,12 @@ def dp(tmp_path_factory):
         "first": inputs["tp_focal"]["batches"][0],
         "batch": inputs["tp_focal"]["batches"][1], "dir": str(ckpt_dir)}
     _tp_checkpoint(inputs["tp_checkpoint"], ckpt_dir)
+    inputs["sp_checkpoint"] = dict(
+        inputs["tp_checkpoint"], cfg=inputs["sp_xe"]["cfg"], mesh=SP,
+        weights=inputs["sp_xe"]["weights"],
+        first=inputs["sp_xe"]["batches"][0],
+        batch=inputs["sp_xe"]["batches"][1], dir=str(work / "ckpt_sp"))
+    _tp_checkpoint(inputs["sp_checkpoint"], work / "ckpt_sp")
 
     jax_initial = jax.device_get(jax_runs["scst_frozen"][0].state.params)
     assert jax_runs["scst_frozen"][0].reward_computer.uses_frozen_df
@@ -270,6 +321,7 @@ def dp(tmp_path_factory):
                         "split": split, "batch_size": 4,
                         "idx_to_word": idx_to_word, "beams": (None, 2)}
     inputs["tp_decode"] = dict(inputs["decode"], mesh=(1, WORLD))
+    inputs["sp_decode"] = dict(inputs["decode"], mesh=SP)
     torch.save(inputs, work / "inputs.pt")
 
     # the ranks import torch and the port only; no JAX-site path leaks in
@@ -283,15 +335,21 @@ def dp(tmp_path_factory):
         # the JAX references trace and compile in threads, side by side
         # the JAX references trace and compile in threads, side by side,
         # while the port runs in one process here
-        with ThreadPoolExecutor(12) as pool:
+        with ThreadPoolExecutor(16) as pool:
             futures = {name: pool.submit(_jax_steps, ref,
                                          inputs[name]["batches"])
                        for name, (ref, _) in jax_runs.items()}
-            for name, cfg in tp_cfgs.items():
-                futures[name] = pool.submit(
-                    _jax_tp, cfg, jmesh_tp, inputs[name]["batches"],
-                    inputs[name].get("vocab"))
-            for name, mesh in (("decode", jmesh), ("tp_decode", jmesh_tp)):
+            for cfgs, mesh in ((tp_cfgs, jmesh_tp), (sp_cfgs, jmesh_sp)):
+                for name, cfg in cfgs.items():
+                    if name == "sp_scan":
+                        futures[name] = pool.submit(
+                            _jax_scan, cfg, mesh, inputs[name]["batches"])
+                        continue
+                    futures[name] = pool.submit(
+                        _jax_tp, cfg, mesh, inputs[name]["batches"],
+                        inputs[name].get("vocab"))
+            for name, mesh in (("decode", jmesh), ("tp_decode", jmesh_tp),
+                               ("sp_decode", jmesh_sp)):
                 futures[name] = pool.submit(lambda mesh: {
                     beam: jax_decode_split(
                         jax_initial, jax_runs["scst_frozen"][1],
@@ -307,12 +365,15 @@ def dp(tmp_path_factory):
                 single = {name: _single(inputs[name])
                           for name in ("xe", "focal", "scst_frozen",
                                        "scst_corpus", "tp_xe", "tp_focal",
-                                       "tp_scst", "tp_dropout")}
+                                       "tp_scst", "tp_dropout", "sp_xe",
+                                       "sp_focal", "sp_fallback", "sp_scst",
+                                       "sp_scan", "sp_dropout")}
             finally:
                 torch.set_num_threads(threads)
             jax_out = {name: f.result() for name, f in futures.items()}
             jax_out["grads"] = {n: f.result() for n, f in grads.items()}
         jax_out["tp_scst_scored"] = jax_out["tp_scst"][2]
+        jax_out["sp_scst_scored"] = jax_out["sp_scst"][2]
         model = Captioner(inputs["decode"]["cfg"].model, device="cpu")
         model.load_state_dict(inputs["decode"]["weights"])
         single["decode"] = {
@@ -328,6 +389,8 @@ def dp(tmp_path_factory):
              for r in range(WORLD)]
     single["tp_checkpoint"] = _after_checkpoint(inputs["tp_checkpoint"],
                                                 ckpt_dir)
+    single["sp_checkpoint"] = _after_checkpoint(inputs["sp_checkpoint"],
+                                                work / "ckpt_sp")
     return {"inputs": inputs, "jax": jax_out, "single": single,
             "ranks": ranks}
 
@@ -511,9 +574,13 @@ def test_tp_checkpoint_crosses_model_axes(dp):
     bit; the ranks' update from it, saved at model 2 in the full layout,
     is one process's update within 1e-5 (weights and Adam's moments), and
     restores in one process as it was saved."""
-    after = dp["single"]["tp_checkpoint"]
+    _check_checkpoint(dp, "tp_checkpoint")
+
+
+def _check_checkpoint(dp, name):
+    after = dp["single"][name]
     for out in dp["ranks"]:
-        got = out["tp_checkpoint"]
+        got = out[name]
         assert all(torch.equal(got["restored"][k], after["epoch1"][k])
                    for k in after["epoch1"])
         assert abs(got["loss"] - after["loss"]) <= 1e-5 * after["loss"]
@@ -529,3 +596,114 @@ def test_tp_checkpoint_crosses_model_axes(dp):
             want = after["moments"][i][key]
             assert st[key].shape == want.shape
             assert _rel(st[key], want) <= 1e-5, (i, key)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism: sequence 2, the JAX package's mesh data=1,
+# sequence=2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["sp_xe", "sp_focal", "sp_fallback"])
+def test_sp_steps_match_jax_mesh(dp, name):
+    """XE on the flagship family (the pair block and the causal encoder
+    mask across the two slot blocks), focal with the decoder's tail FFN,
+    and the fallback whose 7 slots the axis does not divide: the ranks
+    hold the same rows, slot block r (every slot in the fallback), and
+    take the JAX mesh's steps (losses 2e-4, weights 1e-4) and one
+    process's (1e-5, gradients too)."""
+    case = dp["inputs"][name]
+    m = case["cfg"].model
+    assert case["mesh"] == SP
+    assert (m.encode_mask and m.split_image_objects) == (name != "sp_focal")
+    assert m.move_first_image_feature == (name == "sp_focal")
+    slots = case["batches"][0][0][..., 0]
+    for r, out in enumerate(dp["ranks"]):
+        np.testing.assert_array_equal(out[name]["rows"],
+                                      case["batches"][0][2])
+        want = (slots if name == "sp_fallback"
+                else slots[:, 4 * r:4 * (r + 1)])
+        np.testing.assert_array_equal(out[name]["slots"], want)
+    assert m.num_slots == (7 if name == "sp_fallback" else 8)
+    _check_steps(dp, name, ("loss",), jax_tol=1e-4)
+
+
+def test_sp_scst_samples_and_rewards_match_jax(dp):
+    """Pipelined argmax SCST at 8 slots on sequence 2: both ranks sample
+    and score every row as the JAX mesh does, the metrics within the
+    bars."""
+    assert dp["inputs"]["sp_scst"]["cfg"].rl.sample_mode == "argmax"
+    want = dp["jax"]["sp_scst_scored"]
+    assert len(want) == TP_STEPS
+    for out in dp["ranks"]:
+        got = out["sp_scst"]["scored"]
+        assert len(got) == len(want)
+        for (seq, rew), (wseq, wrew) in zip(got, want):
+            np.testing.assert_array_equal(seq, wseq)
+            np.testing.assert_array_equal(rew, wrew)
+        assert any(r.any() for _, r in got)
+    _check_steps(dp, "sp_scst", KEYS, jax_tol=1e-4)
+
+
+def test_sp_scan_matches_jax_scanned_dispatch(dp):
+    """``train.scan_steps`` 2: one scanned dispatch on stacked batches
+    whose slots are sharded (in the JAX package too), the JAX dispatch's
+    losses within 2e-4 and weights 1e-4, one process's 1e-5."""
+    case = dp["inputs"]["sp_scan"]
+    losses, jparams, spec = dp["jax"]["sp_scan"]
+    assert "sequence" in spec
+    jw = state_dict_from_jax_params(jparams, case["cfg"].model)
+    single = dp["single"]["sp_scan"]
+    slots = np.stack([b[0] for b in case["batches"]])[..., 0]
+    for r, out in enumerate(dp["ranks"]):
+        got = out["sp_scan"]
+        np.testing.assert_array_equal(got["features"][..., 0],
+                                      slots[:, :, 4 * r:4 * (r + 1)])
+        assert len(got["losses"]) == 2
+        for a, b, c in zip(got["losses"], losses, single["metrics"]):
+            assert abs(a - float(b)) <= 2e-4 and abs(a - c["loss"]) <= 2e-4
+        for n, v in got["weights"].items():
+            assert _rel(v, jw[n]) <= 1e-4, n
+            assert _rel(v, single["weights"][n]) <= 1e-5, n
+
+
+def test_sp_follows_one_process_at_the_presets_dropout(dp):
+    """At dropout 0.3 and attention dropout 0.1 each rank draws one
+    process's masks and keeps its slots' part (the pair block's rows,
+    the encoder's query rows): losses and weights within 1e-5 relative
+    of one process's."""
+    m = dp["inputs"]["sp_dropout"]["cfg"].model
+    assert (m.dropout, m.attention_dropout) == (0.3, 0.1)
+    assert m.split_image_objects and m.encode_mask
+    single = dp["single"]["sp_dropout"]
+    for out in dp["ranks"]:
+        got = out["sp_dropout"]
+        for a, b in zip(got["metrics"], single["metrics"]):
+            assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+        for n, v in got["weights"].items():
+            assert _rel(v, single["weights"][n]) <= 1e-5, n
+    off = dp["single"]["sp_xe"]["metrics"][1]["loss"]
+    assert single["metrics"][1]["loss"] != off
+
+
+@pytest.mark.parametrize("name", ["sp_xe", "sp_focal", "sp_fallback",
+                                  "sp_scst", "sp_scan", "sp_dropout"])
+def test_sp_ranks_hold_bitwise_equal_weights(dp, name):
+    a, b = (out[name]["weights"] for out in dp["ranks"])
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("beam", [None, 2])
+def test_sp_decode_split_matches_jax_mesh(dp, beam):
+    """Decode over data only on a sequence mesh: each rank decodes every
+    row on every slot, as the JAX package's sequence mesh does."""
+    want = dp["jax"]["sp_decode"][beam]
+    assert want == dp["jax"]["decode"][beam]
+    for out in dp["ranks"]:
+        assert out["sp_decode"][beam] == want
+
+
+def test_sp_checkpoint_crosses_sequence_axes(dp):
+    """A checkpoint written by one process restores at sequence 2 bit for
+    bit; the ranks' update, saved by sequence index 0, is one process's
+    within 1e-5 and restores in one process as it was saved."""
+    _check_checkpoint(dp, "sp_checkpoint")

@@ -1,6 +1,7 @@
 """The port's mesh against the JAX package's on its 8 virtual CPU devices
-(axis arithmetic, row blocks, the replica cache, the decode placement
-rule), joining a process group, and ``train --profile`` /
+(axis arithmetic, row blocks, the slot blocks of ``activation_sharding``,
+the replica cache, the decode placement rule), a slot block's mask rows
+and dropout, joining a process group, and ``train --profile`` /
 ``--debug-nans``.  Two-process runs are in ``test_torch_distributed.py``
 and ``test_torch_distributed_cli.py``; sharded extraction in
 ``test_torch_sharded_extract.py``."""
@@ -19,6 +20,7 @@ from jax.sharding import NamedSharding, PartitionSpec
 from image_caption_tpu.parallel import mesh as JM
 from image_caption_tpu_torch.data.synthetic import generate_synthetic_dataset
 from image_caption_tpu_torch.main import main as cli_main
+from image_caption_tpu_torch.ops import masks as M
 from image_caption_tpu_torch.parallel import distributed as TD
 from image_caption_tpu_torch.parallel import mesh as TM
 
@@ -27,7 +29,8 @@ CPU = torch.device("cpu")
 
 @pytest.mark.parametrize("n,data,model,sequence", [
     (8, -1, 1, 1), (8, 8, 1, 1), (4, -1, 1, 1), (1, -1, 1, 1),
-    (8, 4, 1, 1), (8, 3, 1, 1), (2, 1, 1, 1)])
+    (8, 4, 1, 1), (8, 3, 1, 1), (2, 1, 1, 1), (8, -1, 1, 2),
+    (8, 2, 2, 2), (4, 1, 1, 4), (8, 3, 1, 2), (6, -1, 2, 2)])
 def test_make_mesh_axis_arithmetic_matches_jax(n, data, model, sequence):
     try:
         want = JM.make_mesh(jax.devices()[:n], data, model, sequence)
@@ -41,31 +44,153 @@ def test_make_mesh_axis_arithmetic_matches_jax(n, data, model, sequence):
     assert got.is_main and got.offset == 0
 
 
+def _data_rows(jmesh, rows):
+    """The rows ``data_sharding`` places on each device of ``jmesh``, in
+    the order of ``jmesh.devices.ravel()``."""
+    indices = NamedSharding(jmesh, PartitionSpec(JM.DATA_AXIS)) \
+        .devices_indices_map((rows, 3))
+    return [slice(r.start or 0, r.stop or rows) for r in
+            (indices[d][0] for d in jmesh.devices.ravel())]
+
+
 @pytest.mark.parametrize("axis", ["model", "sequence"])
 def test_model_and_sequence_axes_raise_naming_the_roadmap(axis):
-    """The sequence axis is still to port and raises naming the roadmap.
-    A model axis builds the JAX package's mesh shape; in one process each
-    device holds the rows of its data index, as ``data_sharding`` places
-    them on the JAX mesh, and decode runs each data index once."""
-    kw = {axis: 2}
-    assert JM.make_mesh(jax.devices()[:2], data=1, **kw).shape[axis] == 2
-    if axis == "sequence":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TM.make_mesh(["cpu"] * 2, data=1, **kw)
-        return
-    for n, data, model in ((2, 1, 2), (8, 2, 4), (8, -1, 2), (4, 2, 2)):
-        want = JM.make_mesh(jax.devices()[:n], data, model)
-        got = TM.make_mesh(["cpu"] * n, data, model)
+    """A model or a sequence axis builds the JAX package's mesh shape; in
+    one process each device holds the rows of its data index, as
+    ``data_sharding`` places them on the JAX mesh, and the slots of its
+    sequence index, as ``activation_sharding`` places them; decode runs
+    each data index once.  One process cannot build the axis over one
+    device and names the launch that can."""
+    for n, data, size in ((2, 1, 2), (8, 2, 4), (8, -1, 2), (4, 2, 2)):
+        want = JM.make_mesh(jax.devices()[:n], data, **{axis: size})
+        got = TM.make_mesh(["cpu"] * n, data, **{axis: size})
         assert got.shape == dict(want.shape)
-        indices = NamedSharding(want, PartitionSpec(JM.DATA_AXIS)) \
-            .devices_indices_map((16, 3))
-        rows = [slice(r.start or 0, r.stop or 16) for r in
-                (indices[d][0] for d in want.devices.ravel())]
+        rows = _data_rows(want, 16)
         assert got.row_blocks(16) == rows
         assert len(got.over_data.devices) == got.shape["data"]
-        assert got.over_data.row_blocks(16) == rows[::got.shape["model"]]
+        assert got.over_data.row_blocks(16) == rows[::size]
+        assert got.over_data.shape["model"] == 1
+        assert got.over_data.shape["sequence"] == 1
+        slots = JM.activation_sharding(want, 8).devices_indices_map(
+            (16, 8, 3))
+        blocks = got.slot_blocks(8)
+        if axis == "model":
+            assert blocks is None
+            continue
+        assert blocks == [slice(i.start or 0, i.stop or 8) for i in
+                          (slots[d][1] for d in want.devices.ravel())]
+        assert got.slot_blocks(7) is None
     with pytest.raises(ValueError, match="torchrun"):
-        TM.make_mesh(["cpu"], model=2)
+        TM.make_mesh(["cpu"], **{axis: 2})
+
+
+def test_trainer_refuses_a_one_process_sequence_mesh():
+    """In one process a sequence axis only replicates; a trainer given
+    such a mesh raises, naming the launch that runs it."""
+    from image_caption_tpu_torch.config import get_preset
+    from image_caption_tpu_torch.train.loop import Trainer
+    mesh = TM.make_mesh(["cpu"] * 2, data=1, sequence=2)
+    assert mesh.shape == {"data": 1, "model": 1, "sequence": 2}
+    with pytest.raises(ValueError, match="torchrun"):
+        Trainer(get_preset("maxlen49_64"), mesh=mesh)
+
+
+def _coords_mesh(data, model, sequence, d, m, s):
+    """The mesh of the process-group rank at (d, m, s), without a group."""
+    return TM.Mesh((CPU,), data, d, model=model, model_index=m,
+                   sequence=sequence, sequence_index=s)
+
+
+def _placed(arrays):
+    """Each leaf's index tuple on every device of its JAX placement."""
+    return [{sh.device: sh.index for sh in a.addressable_shards}
+            for a in arrays]
+
+
+@pytest.mark.parametrize("n,data,model,sequence", [
+    (2, 1, 1, 2), (4, 2, 1, 2), (4, 1, 2, 2), (8, 2, 2, 2), (8, 2, 1, 4),
+    (8, 4, 2, 1)])
+@pytest.mark.parametrize("num_slots", [8, 7, None])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_shard_batch_num_slots_matches_activation_sharding(
+        n, data, model, sequence, num_slots, stacked):
+    """``shard_batch`` and ``shard_batch_stacked`` with ``num_slots``
+    give every device of a one-process mesh, and every rank of a process
+    group at the same coordinates, exactly the block the JAX package
+    places there: the slot dim split where the axis divides it, every
+    slot where it does not (7 slots), data only for leaves of lower rank,
+    another slot count, or ``num_slots=None``."""
+    jmesh = JM.make_mesh(jax.devices()[:n], data, model, sequence)
+    shapes = [(16, 8, 5), (16, 8, 3), (16, 13), (16, 6, 2), (16, 7, 3)]
+    batch = [np.arange(np.prod(sh)).reshape(sh) for sh in shapes]
+    if stacked:
+        batches = [[x + 1000 * k for x in batch] for k in range(3)]
+        full = [np.stack(xs) for xs in zip(*batches)]
+        want = _placed(JM.shard_batch_stacked(jmesh, batches, num_slots))
+    else:
+        full = batch
+        want = _placed(JM.shard_batch(jmesh, batch, num_slots))
+    if num_slots == 8 and sequence > 1:
+        # the JAX package does split the 8-slot leaves
+        d = jmesh.devices.ravel()[0]
+        assert want[0][d][1 + stacked] != slice(None)
+
+    def shard(mesh):
+        if stacked:
+            return TM.shard_batch_stacked(mesh, batches, num_slots)
+        return TM.shard_batch(mesh, batch, num_slots)
+
+    single = shard(TM.make_mesh(["cpu"] * n, data, model, sequence))
+    for j, (dev, (dd, m, s)) in enumerate(zip(
+            jmesh.devices.ravel(),
+            np.ndindex(data, model, sequence))):
+        (rank,) = shard(_coords_mesh(data, model, sequence, dd, m, s))
+        for leaf, x, placed in zip(range(len(shapes)), full, want):
+            np.testing.assert_array_equal(single[j][leaf], x[placed[dev]])
+            np.testing.assert_array_equal(rank[leaf], x[placed[dev]])
+
+
+def test_mask_rows_of_a_slot_block_are_the_full_masks():
+    """A rank's encoder mask (key-pad over every slot OR causal, its rows
+    at the block's global offsets) is the rows of the one-process mask,
+    and the cross mask of the full positions is the one-process one."""
+    rng = np.random.RandomState(0)
+    pos = torch.from_numpy(rng.rand(3, 12, 5).astype(np.float32))
+    pos[0, 7:] = 0
+    pos[2, 3:] = 0
+    full = M.combine_masks(M.key_pad_mask_from_features(pos, 12),
+                           M.subsequent_mask(3, 12))
+    for n in (2, 3, 4):
+        per = 12 // n
+        for r in range(n):
+            rows = slice(r * per, (r + 1) * per)
+            got = M.combine_masks(M.key_pad_mask_from_features(pos, per),
+                                  M.subsequent_mask(3, 12, rows=rows))
+            assert got.shape == (3, per, 12)
+            assert torch.equal(got, full[:, rows])
+
+
+def test_dropout_parts_keep_one_process_draw():
+    """``dropout(parts=)`` on a part of a tensor keeps exactly that part
+    of the mask one process draws for the whole: heads (dim 1), slots
+    (dim 1 of [B, S, D], dim 2 of the weights) and rows folded with the
+    slots (dim 0 of the pair block's [B*S, 2, D]), alone and together."""
+    from image_caption_tpu_torch.ops.attention import dropout
+    x = torch.rand(2, 4, 6, 6) + 0.5
+
+    def drop(t, parts=()):
+        return dropout(t, 0.5, torch.Generator().manual_seed(7), False,
+                       parts)
+    full = drop(x)
+    assert (full == 0).any() and (full != 0).any()
+    heads, rows = slice(2, 4), slice(3, 6)
+    got = drop(x[:, heads, rows].contiguous(),
+               [(1, 2, 2, 4), (2, 3, 3, 6)])
+    assert torch.equal(got, full[:, heads, rows])
+    pair = torch.rand(3 * 6, 2, 5) + 0.5
+    want = drop(pair).reshape(3, 6, 2, 5)[:, 2:4].reshape(6, 2, 5)
+    local = pair.reshape(3, 6, 2, 5)[:, 2:4].reshape(6, 2, 5)
+    assert torch.equal(drop(local, [(0, 2, 2, 6)]), want)
 
 
 def test_model_axis_raises_through_the_cli(tmp_path):

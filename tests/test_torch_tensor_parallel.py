@@ -9,7 +9,10 @@ cases: XE and focal steps whose data indices hold different pad counts
 package's, 1e-5 of one process's), pipelined argmax SCST with a frozen CIDEr df (every
 sample and reward the JAX package's), and greedy ``decode_split``; the
 ranks of a model group hold the same rows, and all four the same full
-weights.  Model 2 alone is in ``tests/test_torch_distributed.py``.
+weights.  The same spawn runs XE with a sequence axis: data 2 x
+sequence 2 and model 2 x sequence 2 on the flagship family at 8 slots,
+against the JAX package's meshes of those shapes and one process.  Model
+2 and sequence 2 alone are in ``tests/test_torch_distributed.py``.
 """
 
 import os
@@ -28,11 +31,14 @@ from image_caption_tpu.train.loop import decode_split as jax_decode_split
 from image_caption_tpu_torch.utils.weights import state_dict_from_jax_params
 
 from conftest import make_fake_batch
-from test_torch_distributed import (FOCAL, KEYS, NARROW, RL, ROOT, TINY,
-                                    TP_STEPS as STEPS, WORKER, _jax_grads,
-                                    _jax_tp, _rel, _single, _tp_case, _vocab)
+from test_torch_distributed import (FOCAL, KEYS, NARROW, RL, ROOT, SP_SLOTS,
+                                    SPLIT, TINY, TP_STEPS as STEPS, WORKER,
+                                    _jax_grads, _jax_tp, _rel, _single,
+                                    _tp_case, _vocab)
 
 WORLD, MESH = 4, (2, 2)
+# (data, model, sequence) meshes with a sequence axis of 2
+SP_MESHES = {"dp_sp": (2, 1, 2), "mp_sp": (1, 2, 2)}
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +53,11 @@ def tp(tmp_path_factory):
             ("scst", RL, NARROW, {"vocab": vocab, "df_dir": work / "df"})):
         cfgs[name], inputs[name], initial[name] = _tp_case(
             preset, over, 50, MESH, **extra)
+    jmeshes = {}
+    for name, shape in SP_MESHES.items():
+        cfgs[name], inputs[name], _ = _tp_case(
+            SPLIT, {**NARROW, **SP_SLOTS}, 80, shape)
+        jmeshes[name] = jax_mesh(jax.devices()[:WORLD], *shape)
     jcfg, params = cfgs["scst"], initial["scst"]
 
     f, p, _ = make_fake_batch(jcfg, batch=8, seed=70)
@@ -67,12 +78,16 @@ def tp(tmp_path_factory):
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(WORLD)]
     try:
-        with ThreadPoolExecutor(6) as pool:
+        with ThreadPoolExecutor(8) as pool:
             futures = {
                 name: pool.submit(_jax_tp, cfgs[name], jmesh,
                                   inputs[name]["batches"],
                                   inputs[name].get("vocab"))
                 for name in ("xe", "focal", "scst")}
+            futures.update({
+                name: pool.submit(_jax_tp, cfgs[name], jmeshes[name],
+                                  inputs[name]["batches"])
+                for name in SP_MESHES})
             futures.update({
                 f"grads_{name}": pool.submit(
                     _jax_grads, cfgs[name], initial[name],
@@ -84,7 +99,8 @@ def tp(tmp_path_factory):
             torch.set_num_threads(1)       # beside the JAX threads
             try:
                 single = {name: _single(inputs[name])
-                          for name in ("xe", "focal", "scst")}
+                          for name in ("xe", "focal", "scst",
+                                       *SP_MESHES)}
             finally:
                 torch.set_num_threads(threads)
             jax_out = {name: f.result() for name, f in futures.items()}
@@ -165,3 +181,29 @@ def test_tp22_decode_split_matches_jax_mesh(tp):
     want = tp["jax"]["decode"]
     for out in tp["ranks"]:
         assert out["decode"][None] == want
+
+
+@pytest.mark.parametrize("name", sorted(SP_MESHES))
+def test_sp22_steps_match_jax_mesh(tp, name):
+    """XE with the slots split over a sequence axis of 2, beside a data
+    axis or a model axis of 2: rank r holds data index r // 2 (dp_sp; all
+    rows at mp_sp) and slot block r % 2, and takes the steps of the JAX
+    package's mesh of the same shape (losses 2e-4, weights 1e-4) and one
+    process's (1e-5, gradients in the full layout too)."""
+    data, model, seq = SP_MESHES[name]
+    case = tp["inputs"][name]
+    assert case["mesh"] == SP_MESHES[name]
+    assert case["cfg"].model.num_slots == 8
+    rows = 8 // data
+    glob, slots = case["batches"][0][2], case["batches"][0][0][..., 0]
+    for r, out in enumerate(tp["ranks"]):
+        d, s = r // (model * seq), r % seq
+        block = slice(rows * d, rows * (d + 1))
+        np.testing.assert_array_equal(out[name]["rows"], glob[block])
+        np.testing.assert_array_equal(out[name]["slots"],
+                                      slots[block, 4 * s:4 * (s + 1)])
+    _check(tp, name, ("loss",))
+    first = tp["ranks"][0][name]["weights"]
+    for out in tp["ranks"][1:]:
+        assert all(torch.equal(out[name]["weights"][k], first[k])
+                   for k in first)

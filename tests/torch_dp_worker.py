@@ -6,10 +6,10 @@
 
 It joins a gloo group through ``file://WORKDIR/rendezvous``, runs every
 case of ``WORKDIR/inputs.pt`` over a mesh of one CPU device per process,
-of the case's (data, model) shape (data parallel over every rank when it
-names none), and writes what it saw to ``WORKDIR/rank{RANK}.pt``:
-weights and gradients in the full layout.  It imports torch and the port
-only.
+of the case's (data, model) or (data, model, sequence) shape (data
+parallel over every rank when it names none), and writes what it saw to
+``WORKDIR/rank{RANK}.pt``: weights and gradients in the full layout.  It
+imports torch and the port only.
 """
 
 import os
@@ -32,14 +32,17 @@ def run_steps(case, mesh):
     """The case's updates on global batches through ``train_step_device``
     (the pipelined RL schedule drains at the end): the metrics of each
     update, the gradients of the first, the deterministic metrics of batch
-    0 before training, the weights after, and an RL trainer's sampled
-    sequences and rewards (this rank's rows)."""
+    0 before training, the weights after, this rank's block of batch 0,
+    and an RL trainer's sampled sequences and rewards (this rank's
+    rows)."""
     cfg = case["cfg"]
     trainer = make_trainer(cfg, case.get("vocab"), mesh=mesh, seed=0)
     trainer.load_state_dict(case["weights"])
     model = trainer.state.model
+    block = trainer.shard(case["batches"][0])
+    # the rank's captions, and its features' first column [rows, slots]
     out = {"eval": trainer.compute_loss(*case["batches"][0]),
-           "rows": trainer.shard(case["batches"][0])[2], "scored": []}
+           "rows": block[2], "slots": block[0][..., 0], "scored": []}
     if isinstance(trainer, RLTrainer):
         score = trainer._host_rewards
 
@@ -60,6 +63,18 @@ def run_steps(case, mesh):
     out["grads"] = grads
     out["weights"] = full_state_dict(model)
     return out
+
+
+def scan(case, mesh):
+    """The case's batches as one scanned dispatch (``shard_stacked`` and
+    ``train_steps_device``): the losses [K], this rank's block of the
+    stacked features, and the weights after."""
+    trainer = make_trainer(case["cfg"], mesh=mesh, seed=0)
+    trainer.load_state_dict(case["weights"])
+    stacked = trainer.shard_stacked(case["batches"])
+    losses = trainer.train_steps_device(stacked)["loss"]
+    return {"losses": losses.tolist(), "features": stacked[0],
+            "weights": full_state_dict(trainer.state.model)}
 
 
 def df_disagreement(case, mesh):
@@ -97,7 +112,7 @@ def decode(case, mesh):
 
 
 CASES = {"steps": run_steps, "df_disagreement": df_disagreement,
-         "decode": decode, "checkpoint": checkpoint}
+         "decode": decode, "checkpoint": checkpoint, "scan": scan}
 
 
 def main(rank: int, world: int, workdir: str) -> None:
