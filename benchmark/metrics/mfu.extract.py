@@ -1,0 +1,7 @@
+"""Percent of the card's peaks that the traced extract work's operations would take of the traced window."""
+
+from benchmark.metrics._shares import mfu
+
+
+def read(run):
+    return mfu(run)
