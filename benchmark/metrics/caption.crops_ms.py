@@ -1,0 +1,7 @@
+"""Device ms a caption batch of ``extract.crops`` (Faster R-CNN's extraction)."""
+
+from benchmark.metrics._spans import unit_device_ms
+
+
+def read(run):
+    return unit_device_ms(run, "serve.batch", "extract.crops")

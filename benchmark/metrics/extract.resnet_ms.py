@@ -1,0 +1,7 @@
+"""Device ms an extraction batch of ``extract.resnet``."""
+
+from benchmark.metrics._spans import unit_device_ms
+
+
+def read(run):
+    return unit_device_ms(run, "extract.batch", "extract.resnet")

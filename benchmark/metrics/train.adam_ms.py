@@ -1,0 +1,8 @@
+"""Device ms a step of ``train.adam``, less what the batch copies (``train.to_device``) cover."""
+
+from benchmark.metrics._spans import unit_device_ms
+
+
+def read(run):
+    return unit_device_ms(run, "train.step", "train.adam",
+                          minus="train.to_device")

@@ -16,6 +16,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
 
+from ..utils.debug import annotate
+
 _END = object()
 
 
@@ -35,7 +37,12 @@ class Prefetcher:
 
         def produce():
             try:
-                for item in self._iterable:
+                items = iter(self._iterable)
+                while True:
+                    with annotate("prefetch.assemble"):
+                        item = next(items, _END)
+                    if item is _END:
+                        break
                     if self._transform is not None:
                         item = self._transform(item)
                     q.put(item)

@@ -66,8 +66,9 @@ def _load_config(args) -> Config:
 def cmd_train(args) -> None:
     """main.py:25-153.  ``--profile`` writes a Chrome trace of a few train
     steps after the first (``utils.debug.trace``) under
-    ``{output_path}/profile``; ``--debug-nans`` raises on a non-finite
-    loss or gradient."""
+    ``{output_path}/profile``, with the main thread's spans
+    (``utils.debug.annotate``) as ``user_annotation`` events;
+    ``--debug-nans`` raises on a non-finite loss or gradient."""
     from .train.loop import train
     from .utils.debug import enable_nan_debugging, trace
     cfg = _load_config(args)
@@ -309,7 +310,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--no-resume", action="store_true")
     t.add_argument("--profile", action="store_true",
                    help="write a torch.profiler Chrome trace of train "
-                        "steps 2-6 under {output_path}/profile")
+                        "steps 2-6 under {output_path}/profile, with the "
+                        "spans train_step, train.step, train.forward, "
+                        "train.backward and train.adam of each step, and "
+                        "epoch_eval (the feed thread's spans stay out)")
     t.add_argument("--debug-nans", action="store_true",
                    help="autograd anomaly mode; raise on a non-finite loss "
                         "or gradient (slow)")

@@ -30,6 +30,7 @@ import torch
 
 from ..config import END_IDX, NULL_IDX, START_IDX, ModelConfig
 from ..ops.attention import masked_softmax
+from ..utils.debug import annotate
 from ..utils.device import DeviceLike, resolve_device
 from .captioner import Captioner
 from .layers import MultiHeadAttention
@@ -158,18 +159,25 @@ def decoder_step(model: Captioner, token: torch.Tensor, pos: int,
     nonpad = is_word[:, None, None].to(x.dtype)
     cross_k, cross_v = cross_kv
     cross_attn = None
+    # a span a sub-layer: the card waits on the step's small launches, and
+    # a trace names each idle gap after the span open at its middle (found
+    # among the few hundred host events before it)
     for i, block in enumerate(model.decoder.decoder):
-        x = _mha_step_self(block.self_attention, x, cache.k[i], cache.v[i],
-                           pos, cache.valid)
-        x, cross_attn = _mha_step_cross(block.encode_attention, x,
-                                        cross_k[i], cross_v[i],
-                                        cross_neg_mask)
-        # non-pad zeroing of the current row (model.py:444,203-204)
-        x = block.feed_forward(x) * nonpad
-    if cfg.move_first_image_feature:
-        # the tail FFN is not pad-zeroed (model.py:451-457)
-        x = model.decoder.move_first_image_feature(x, encode_output)
-    logits = model.classifer(x[:, 0].float())
+        with annotate("decode.self_attention"):
+            x = _mha_step_self(block.self_attention, x, cache.k[i],
+                               cache.v[i], pos, cache.valid)
+        with annotate("decode.cross_attention"):
+            x, cross_attn = _mha_step_cross(block.encode_attention, x,
+                                            cross_k[i], cross_v[i],
+                                            cross_neg_mask)
+        with annotate("decode.feed_forward"):
+            # non-pad zeroing of the current row (model.py:444,203-204)
+            x = block.feed_forward(x) * nonpad
+    with annotate("decode.classifier"):
+        if cfg.move_first_image_feature:
+            # the tail FFN is not pad-zeroed (model.py:451-457)
+            x = model.decoder.move_first_image_feature(x, encode_output)
+        logits = model.classifer(x[:, 0].float())
     return logits, cross_attn[:, :, 0, :]
 
 
@@ -196,22 +204,27 @@ def greedy_decode(model: Captioner, object_features, position_features, *,
     attention[t] is the mean over heads of the last block's cross-attention
     at step t (model.py:123), used by the demo overlay."""
     cfg = model.cfg
-    feats, poss = _inputs(model, object_features, position_features, device)
-    encode_output, cross_kv, cross_neg = _encode(model, feats, poss,
-                                                 use_kernel)
-    b = encode_output.shape[0]
-    tokens = torch.zeros((b, cfg.max_length + 1), dtype=torch.long,
-                         device=feats.device)
-    tokens[:, 0] = START_IDX
-    cache = init_cache(cfg, b, feats.dtype, feats.device)
-    attn = []
-    for t in range(cfg.max_length - 1):
-        logits, cross_attn = decoder_step(model, tokens[:, t], t, cache,
-                                          cross_kv, cross_neg, encode_output)
-        # softmax -> argmax == argmax(logits), the first maximum on ties
-        tokens[:, t + 1] = logits.argmax(dim=-1)
-        if return_attention:
-            attn.append(cross_attn.mean(dim=1))
+    with annotate("decode.greedy", device=True):
+        feats, poss = _inputs(model, object_features, position_features,
+                              device)
+        encode_output, cross_kv, cross_neg = _encode(model, feats, poss,
+                                                     use_kernel)
+        b = encode_output.shape[0]
+        tokens = torch.zeros((b, cfg.max_length + 1), dtype=torch.long,
+                             device=feats.device)
+        tokens[:, 0] = START_IDX
+        cache = init_cache(cfg, b, feats.dtype, feats.device)
+        attn = []
+        for t in range(cfg.max_length - 1):
+            with annotate("decode.step"):
+                logits, cross_attn = decoder_step(model, tokens[:, t], t,
+                                                  cache, cross_kv, cross_neg,
+                                                  encode_output)
+                # softmax -> argmax == argmax(logits), the first maximum on
+                # ties
+                tokens[:, t + 1] = logits.argmax(dim=-1)
+                if return_attention:
+                    attn.append(cross_attn.mean(dim=1))
     return tokens, (torch.stack(attn) if return_attention else None)
 
 

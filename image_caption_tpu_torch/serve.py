@@ -39,6 +39,7 @@ from .data.vocab import decode_captions
 from .models.captioner import Captioner
 from .models.decoding import beam_score_mode, beam_search, greedy_decode
 from .parallel.mesh import Mesh, decode_placement, gather_rows
+from .utils.debug import annotate
 from .utils.device import DeviceLike, resolve_device
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
@@ -163,19 +164,30 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
         skip_errors=skip_errors, use_kernel=use_kernel,
         compute_dtype=compute_dtype, device=device,
         mesh=mesh if place is not None else None)
-    for start, real, failed, feats, poss in stream:
-        # the captioner reads its own position width (84 YOLOv5, 95 FRCNN)
-        feats, poss = feats.float(), poss[:, :, :m.dim_positions].float()
-        if place is None:
-            tokens = _decode(model, cfg, feats, poss, beam_size, use_kernel,
-                             device).cpu().numpy()
-        else:
-            tokens = _decode_sharded(models, place, cfg, feats, poss,
-                                     beam_size, use_kernel, mesh)
-        batch_caps: List[Optional[str]] = decode_captions(
-            tokens[:real], idx_to_word)
-        for j in failed:
-            batch_caps[j] = None
+    batches = iter(stream)
+    while True:
+        # a batch's span runs from the request for its features (the
+        # stream loads and extracts it) to its captions
+        with annotate("serve.batch"):
+            got = next(batches, None)
+            if got is None:
+                break
+            start, real, failed, feats, poss = got
+            # the captioner reads its own position width (84 YOLOv5, 95
+            # FRCNN)
+            feats, poss = feats.float(), poss[:, :, :m.dim_positions].float()
+            if place is None:
+                tokens = _decode(model, cfg, feats, poss, beam_size,
+                                 use_kernel, device)
+                with annotate("serve.tokens_to_host"):
+                    tokens = tokens.cpu().numpy()
+            else:
+                tokens = _decode_sharded(models, place, cfg, feats, poss,
+                                         beam_size, use_kernel, mesh)
+            batch_caps: List[Optional[str]] = decode_captions(
+                tokens[:real], idx_to_word)
+            for j in failed:
+                batch_caps[j] = None
         captions[start:start + real] = batch_caps
         if on_batch is not None:
             on_batch(start, batch_caps)

@@ -118,18 +118,20 @@ class Trainer:
     def to_device(self, batch):
         """This rank's rows of a global host batch (numpy or tensors) on
         the trainer's device."""
-        return to_device(self.shard(batch), self.device)
+        with annotate("train.to_device", device=True):
+            return to_device(self.shard(batch), self.device)
 
     def shard_stacked(self, batches):
         """K global host batches -> this rank's rows of them stacked
         [K, B, ...] on the device, one copy a leaf for the K steps of
         ``train_steps_device``."""
-        batches = [tuple(b[:3]) for b in batches]
-        stacked = (tree_stack(batches) if self.mesh is None
-                   else shard_batch_stacked(
-                       self.mesh, batches,
-                       num_slots=self.cfg.model.num_slots)[0])
-        return to_device(stacked, self.device)
+        with annotate("train.to_device", device=True):
+            batches = [tuple(b[:3]) for b in batches]
+            stacked = (tree_stack(batches) if self.mesh is None
+                       else shard_batch_stacked(
+                           self.mesh, batches,
+                           num_slots=self.cfg.model.num_slots)[0])
+            return to_device(stacked, self.device)
 
     def load_state_dict(self, state) -> None:
         """Weights of the reference layout (a full model's state_dict);
@@ -169,15 +171,17 @@ class Trainer:
     def train_step_device(self, batch) -> Dict[str, torch.Tensor]:
         """Step on a batch already on the device; returns the metrics as
         device tensors, without waiting for them."""
-        return train_step(self.state, batch, seed=self.step_seed,
-                          mesh=self.mesh)
+        with annotate("train.step"):
+            return train_step(self.state, batch, seed=self.step_seed,
+                              mesh=self.mesh)
 
     def train_steps_device(self, stacked) -> Dict[str, torch.Tensor]:
         """K updates over a stacked device batch (``shard_stacked``), one
         per view along dim 0; metrics stacked [K] per key, equal to K
         ``train_step_device`` calls."""
-        return train_steps(self.state, unstack(stacked),
-                           seed=self.step_seed, mesh=self.mesh)
+        with annotate("train.step"):
+            return train_steps(self.state, unstack(stacked),
+                               seed=self.step_seed, mesh=self.mesh)
 
     def compute_loss(self, features, positions, captions
                      ) -> Dict[str, float]:

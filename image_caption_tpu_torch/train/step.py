@@ -38,7 +38,7 @@ import torch
 
 from ..models.captioner import Captioner, xe_loss
 from ..parallel.mesh import all_reduce_grads
-from ..utils.debug import check_finite
+from ..utils.debug import annotate, check_finite
 from ..utils.rng import fold_in, generator
 from .state import TrainState, zero_pad_embedding_grad
 
@@ -71,13 +71,15 @@ def apply_update(state: TrainState, loss: torch.Tensor, mesh=None) -> None:
     raises first."""
     model = state.model
     check_finite("loss", [loss], state.step)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    all_reduce_grads(mesh, model.parameters())
-    zero_pad_embedding_grad(model, model.cfg.pad_idx)
+    with annotate("train.backward", device=True):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        all_reduce_grads(mesh, model.parameters())
+        zero_pad_embedding_grad(model, model.cfg.pad_idx)
     check_finite("gradient", (p.grad for p in model.parameters()
                               if p.grad is not None), state.step)
-    state.optimizer.step()
+    with annotate("train.adam", device=True):
+        state.optimizer.step()
     state.step += 1
 
 
@@ -90,8 +92,9 @@ def train_step(state: TrainState, batch: Batch, *, seed: int,
     gradients until the next step."""
     model = state.model
     gen = step_generator(seed, state.step, model.device)
-    loss = xe_loss(model, *batch, generator=gen, deterministic=False,
-                   use_kernel=use_kernel, mesh=mesh)["loss"]
+    with annotate("train.forward", device=True):
+        loss = xe_loss(model, *batch, generator=gen, deterministic=False,
+                       use_kernel=use_kernel, mesh=mesh)["loss"]
     apply_update(state, loss, mesh)
     return {"loss": loss.detach()}
 

@@ -37,6 +37,7 @@ from ..config import Config
 from ..data.tokenizer import clean_caption, tokenize_caption
 from ..data.vocab import build_caption_vector, build_vocab
 from ..parallel.mesh import make_mesh
+from ..utils.debug import annotate
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.io import load_pickle, open_hkl, save_array, save_pickle
 from .loader import load_letterboxed_batch
@@ -201,7 +202,8 @@ def stream_extracted_batches(
     try:
         pending = batch_pool.submit(load_batch, starts[0]) if starts else None
         for i, start in enumerate(starts):
-            canvases, metas, sizes, real, failed = pending.result()
+            with annotate("serve.load_wait"):
+                canvases, metas, sizes, real, failed = pending.result()
             if i + 1 < len(starts):
                 pending = batch_pool.submit(load_batch, starts[i + 1])
             feats, poss, _ = extract(torch.from_numpy(canvases),

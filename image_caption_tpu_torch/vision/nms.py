@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.decoding import topk_lowest_index
+from ..utils.debug import annotate
 
 
 class Detections(NamedTuple):
@@ -76,12 +77,16 @@ def nms_fixed(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
     lanes = torch.arange(k, device=scores.device)
     picks, oks = [], []
     for _ in range(max_det):
-        score_m = torch.where(avail, top_scores,
-                              torch.full_like(top_scores, -2.0))
-        i = torch.argmax(score_m, dim=1)                          # [B]
-        oks.append(score_m[rows, i] > conf_thres)
-        avail = avail & ~(iou[rows, i] > iou_thres) & (lanes[None] != i[:, None])
-        picks.append(i)
+        # a span a pick: the card waits on this loop's small launches, and
+        # a trace names each idle gap after the span open at its middle
+        with annotate("nms.step"):
+            score_m = torch.where(avail, top_scores,
+                                  torch.full_like(top_scores, -2.0))
+            i = torch.argmax(score_m, dim=1)                      # [B]
+            oks.append(score_m[rows, i] > conf_thres)
+            avail = (avail & ~(iou[rows, i] > iou_thres)
+                     & (lanes[None] != i[:, None]))
+            picks.append(i)
     picks = torch.stack(picks, dim=1)                             # [B, D]
     valid = torch.stack(oks, dim=1)
     boxes = torch.gather(top_boxes, 1, picks[..., None].expand(-1, -1, 4))

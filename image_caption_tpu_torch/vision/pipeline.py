@@ -42,6 +42,7 @@ import torch
 
 from ..models.decoding import topk_lowest_index
 from ..parallel.mesh import DATA_AXIS, replicate_cached
+from ..utils.debug import annotate, count
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tree import tree_map
 from .frcnn import NUM_CLASSES as FRCNN_CLASSES
@@ -307,29 +308,37 @@ def extract_features_batch(params: ExtractorParams, canvases, metas,
     boxes [B, K, 4] original-pixel xyxy) with S' = num_objects + 1, on
     ``device``.  ``compute_dtype`` defaults to bfloat16 as in the JAX
     package; float32 is for parity studies."""
-    canvases, metas, orig_sizes = _on_device(params, device, canvases,
-                                             metas, orig_sizes)
-    b = canvases.shape[0]
-    sel = _detect_and_select(params, canvases, metas, orig_sizes,
-                             num_objects=num_objects, cap_half=cap_half,
-                             max_obj=max_obj, num_classes=num_classes,
-                             compute_dtype=compute_dtype)
+    with annotate("extract.batch", device=True):
+        canvases, metas, orig_sizes = _on_device(params, device, canvases,
+                                                 metas, orig_sizes)
+        b = canvases.shape[0]
+        with annotate("extract.detect", device=True):
+            sel = _detect_and_select(params, canvases, metas, orig_sizes,
+                                     num_objects=num_objects,
+                                     cap_half=cap_half, max_obj=max_obj,
+                                     num_classes=num_classes,
+                                     compute_dtype=compute_dtype)
 
-    # slot 0 = the whole letterboxed content region
-    crop_boxes = torch.cat([sel.full_box[:, None], sel.sel_boxes], dim=1)
-    m = crop_boxes.shape[1]
-    # the resample runs in the compute dtype (two dense matmuls per crop)
-    crops = crop_and_resize(canvases.to(compute_dtype), crop_boxes,
-                            crop_size)                     # [B, M, S, S, 3]
-    mean = torch.from_numpy(IMAGENET_MEAN).to(crops.device)
-    std = torch.from_numpy(IMAGENET_STD).to(crops.device)
-    crops = (crops.float() / 255.0 - mean) / std
-    flat = crops.reshape(b * m, crop_size, crop_size, 3)
-    feats_sel = resnet_features(params.resnet, flat,
-                                compute_dtype=compute_dtype,
-                                use_kernel=use_kernel).reshape(b, m, -1)
-    return _assemble_outputs(sel, feats_sel, num_objects=num_objects,
-                             max_obj=max_obj, num_classes=num_classes)
+        with annotate("extract.crops", device=True):
+            # slot 0 = the whole letterboxed content region
+            crop_boxes = torch.cat([sel.full_box[:, None], sel.sel_boxes],
+                                   dim=1)
+            m = crop_boxes.shape[1]
+            # the resample runs in the compute dtype (two dense matmuls per
+            # crop)
+            crops = crop_and_resize(canvases.to(compute_dtype), crop_boxes,
+                                    crop_size)             # [B, M, S, S, 3]
+            mean = torch.from_numpy(IMAGENET_MEAN).to(crops.device)
+            std = torch.from_numpy(IMAGENET_STD).to(crops.device)
+            crops = (crops.float() / 255.0 - mean) / std
+            flat = crops.reshape(b * m, crop_size, crop_size, 3)
+        with annotate("extract.resnet", device=True):
+            feats_sel = resnet_features(params.resnet, flat,
+                                        compute_dtype=compute_dtype,
+                                        use_kernel=use_kernel
+                                        ).reshape(b, m, -1)
+        return _assemble_outputs(sel, feats_sel, num_objects=num_objects,
+                                 max_obj=max_obj, num_classes=num_classes)
 
 
 @torch.no_grad()
@@ -478,46 +487,55 @@ def extract_features_frcnn(params: FrcnnExtractorParams, canvases, metas,
     halved, rows [y1/H, y2/H, x1/W, x2/W] + the score at (label - 1) of 91;
     invalid slots are zero.  ``use_kernel`` sends ResNet-101's identity
     runs through kernel #4 (its float32 route)."""
-    canvases, metas, orig_sizes = _on_device(params, device, canvases,
-                                             metas, orig_sizes)
-    b = canvases.shape[0]
-    mean = torch.from_numpy(IMAGENET_MEAN).to(canvases.device)
-    std = torch.from_numpy(IMAGENET_STD).to(canvases.device)
-    with _cudnn_f32():
-        det = frcnn_detect(params.frcnn, (canvases / 255.0 - mean) / std,
-                           canvas=canvas, max_det=num_objects)
-        oh, ow = orig_sizes[:, 0], orig_sizes[:, 1]
-        boxes_orig = unletterbox_boxes(det.boxes, metas, oh, ow)
+    with annotate("extract.batch", device=True):
+        canvases, metas, orig_sizes = _on_device(params, device, canvases,
+                                                 metas, orig_sizes)
+        b = canvases.shape[0]
+        mean = torch.from_numpy(IMAGENET_MEAN).to(canvases.device)
+        std = torch.from_numpy(IMAGENET_STD).to(canvases.device)
+        with _cudnn_f32():
+            with annotate("extract.detect", device=True):
+                det = frcnn_detect(params.frcnn,
+                                   (canvases / 255.0 - mean) / std,
+                                   canvas=canvas, max_det=num_objects)
+            oh, ow = orig_sizes[:, 0], orig_sizes[:, 1]
+            boxes_orig = unletterbox_boxes(det.boxes, metas, oh, ow)
 
-        # crops from the canvas; slot 0 = the letterboxed content region
-        r, top, left = metas[:, 0], metas[:, 1], metas[:, 2]
-        full_box = torch.stack([left, top, left + ow * r, top + oh * r],
-                               dim=-1)
-        crops = crop_and_resize(
-            canvases, torch.cat([full_box[:, None], det.boxes], dim=1),
-            crop_size)
-        crops = (crops / 255.0 - mean) / std
-        feats = resnet_features(
-            params.resnet, crops.reshape(-1, crop_size, crop_size, 3),
-            use_kernel=use_kernel).reshape(b, num_objects + 1, -1)
+            with annotate("extract.crops", device=True):
+                # crops from the canvas; slot 0 = the letterboxed content
+                # region
+                r, top, left = metas[:, 0], metas[:, 1], metas[:, 2]
+                full_box = torch.stack(
+                    [left, top, left + ow * r, top + oh * r], dim=-1)
+                crops = crop_and_resize(
+                    canvases,
+                    torch.cat([full_box[:, None], det.boxes], dim=1),
+                    crop_size)
+                crops = (crops / 255.0 - mean) / std
+            with annotate("extract.resnet", device=True):
+                feats = resnet_features(
+                    params.resnet, crops.reshape(-1, crop_size, crop_size, 3),
+                    use_kernel=use_kernel).reshape(b, num_objects + 1, -1)
 
-    slot_valid = torch.cat([torch.ones((b, 1), dtype=torch.bool,
-                                       device=canvases.device), det.valid],
-                           dim=1)
-    feats = feats * slot_valid[..., None]
-    h, w = oh[:, None], ow[:, None]
-    norm4 = torch.stack([boxes_orig[..., 1] / h, boxes_orig[..., 3] / h,
-                         boxes_orig[..., 0] / w, boxes_orig[..., 2] / w],
-                        dim=-1)
-    # an invalid slot's label 0 would index -1: its row is zeroed anyway
-    onehot = torch.nn.functional.one_hot(
-        torch.clamp(det.labels.long() - 1, min=0),
-        FRCNN_CLASSES).float() * det.scores[..., None]
-    pos_obj = torch.cat([norm4, onehot], dim=-1) * det.valid[..., None]
-    full_row = torch.zeros((b, 1, 4 + FRCNN_CLASSES),
-                           device=canvases.device)
-    full_row[:, :, 2:4] = 1.0
-    return feats, torch.cat([full_row, pos_obj], dim=1), boxes_orig
+        slot_valid = torch.cat([torch.ones((b, 1), dtype=torch.bool,
+                                           device=canvases.device),
+                                det.valid], dim=1)
+        count("extract.crops", b * (num_objects + 1))
+        count("extract.crops_valid", slot_valid)
+        feats = feats * slot_valid[..., None]
+        h, w = oh[:, None], ow[:, None]
+        norm4 = torch.stack([boxes_orig[..., 1] / h, boxes_orig[..., 3] / h,
+                             boxes_orig[..., 0] / w, boxes_orig[..., 2] / w],
+                            dim=-1)
+        # an invalid slot's label 0 would index -1: its row is zeroed anyway
+        onehot = torch.nn.functional.one_hot(
+            torch.clamp(det.labels.long() - 1, min=0),
+            FRCNN_CLASSES).float() * det.scores[..., None]
+        pos_obj = torch.cat([norm4, onehot], dim=-1) * det.valid[..., None]
+        full_row = torch.zeros((b, 1, 4 + FRCNN_CLASSES),
+                               device=canvases.device)
+        full_row[:, :, 2:4] = 1.0
+        return feats, torch.cat([full_row, pos_obj], dim=1), boxes_orig
 
 
 # ---------------------------------------------------------------------------

@@ -149,20 +149,23 @@ def test_prefetcher_raises_the_producer_error():
 
 
 def test_step_timer_leaves_out_the_first_step(monkeypatch):
-    clock = iter([1.5, 5.0, 6.0, 8.0, 10.0, 20.0, 21.0, 22.0])
+    clock = iter([5.0, 6.0, 8.0, 21.0, 22.0])
     monkeypatch.setattr("image_caption_tpu_torch.utils.debug.time"
                         ".perf_counter", lambda: next(clock))
-    t = StepTimer()                  # the clock starts at 1.5 s
-    assert t.steps_per_sec is None and t.compile_seconds is None
+    t = StepTimer()
+    assert t.steps_per_sec is None
     t.step()                         # the first step ends at 5 s
     t.step()                         # 6
     t.step(2)                        # 8: a 2-step call
-    assert t.steps_per_sec == 3 / (10.0 - 5.0)
-    assert t.compile_seconds == 5.0 - 1.5
-    t.reset()                        # 20: a new epoch starts the count
-    assert t.steps_per_sec is None and t.compile_seconds is None
+    # the rate ends at the last step: reading it later changes nothing
+    assert t.steps_per_sec == 3 / (8.0 - 5.0)
+    assert t.steps_per_sec == 3 / (8.0 - 5.0)
+    t.reset()                        # a new epoch starts the count
+    assert t.steps_per_sec is None
     t.step()                         # 21
-    assert t.compile_seconds == 1.0 and t.steps_per_sec is None
+    assert t.steps_per_sec is None
+    t.step()                         # 22
+    assert t.steps_per_sec == 1 / (22.0 - 21.0)
 
 
 def test_save_pickle_and_save_array_round_trip(tmp_path):
