@@ -46,7 +46,7 @@ import torch
 
 from ..config import Config
 from ..data.dataset import CaptionBatches, load_split
-from ..data.prefetch import Prefetcher
+from ..data.prefetch import PinnedCopier, Prefetcher
 from ..data.vocab import decode_captions, invert_vocab
 from ..metrics.evaluate import is_scalar_score, score_captions
 from ..models.captioner import Captioner
@@ -102,6 +102,9 @@ class Trainer:
         self.state: TrainState = create_train_state(
             cfg, device=self.device, seed=fold_in(seed, 0), mesh=mesh)
         self._replica: Optional[tuple] = None     # (step, full model)
+        # the batches' copies to the card, off its compute stream
+        self._copier = (PinnedCopier(self.device)
+                        if self.device.type == "cuda" else None)
 
     def shard(self, batch):
         """This rank's block of a global host batch's (features, positions,
@@ -115,23 +118,29 @@ class Trainer:
         return shard_batch(self.mesh, batch,
                            num_slots=self.cfg.model.num_slots)[0]
 
+    def _copy_span(self):
+        """The span of a batch's copy: on the card its device interval is
+        the copy on the copier's stream."""
+        return annotate("train.to_device", device=True,
+                        stream=self._copier and self._copier.stream)
+
     def to_device(self, batch):
         """This rank's rows of a global host batch (numpy or tensors) on
-        the trainer's device."""
-        with annotate("train.to_device", device=True):
-            return to_device(self.shard(batch), self.device)
+        the trainer's device; on the card through its ``PinnedCopier``."""
+        with self._copy_span():
+            return to_device(self.shard(batch), self.device, self._copier)
 
     def shard_stacked(self, batches):
         """K global host batches -> this rank's rows of them stacked
         [K, B, ...] on the device, one copy a leaf for the K steps of
         ``train_steps_device``."""
-        with annotate("train.to_device", device=True):
+        with self._copy_span():
             batches = [tuple(b[:3]) for b in batches]
             stacked = (tree_stack(batches) if self.mesh is None
                        else shard_batch_stacked(
                            self.mesh, batches,
                            num_slots=self.cfg.model.num_slots)[0])
-            return to_device(stacked, self.device)
+            return to_device(stacked, self.device, self._copier)
 
     def load_state_dict(self, state) -> None:
         """Weights of the reference layout (a full model's state_dict);

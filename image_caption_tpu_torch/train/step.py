@@ -31,25 +31,37 @@ differs.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..data.prefetch import PinnedCopier
 from ..models.captioner import Captioner, xe_loss
 from ..parallel.mesh import all_reduce_grads
-from ..utils.debug import annotate, check_finite
+from ..utils.debug import annotate, check_finite, count
 from ..utils.rng import fold_in, generator
 from .state import TrainState, zero_pad_embedding_grad
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def to_device(batch, device) -> Batch:
+def to_device(batch, device, copier: Optional[PinnedCopier] = None
+              ) -> Batch:
     """(features, positions, captions) from numpy or tensors -> f32, f32 and
-    int64 tensors on ``device``.  The host arrays are pageable, so each
-    copy is staged and waits for the card's stream."""
+    int64 tensors on ``device``.  With a ``copier`` (a trainer's on the
+    card) host leaves go through its pinned slots on its copy stream, and
+    the compute stream waits for them on the device before the step reads
+    them; otherwise each leaf is a plain ``.to``, on the current stream.
+    Either way the tensors are bitwise the same (the captions' int64 cast
+    is exact wherever it runs).  Counts ``train.copies``."""
     f, p, c = batch[:3]
+    count("train.copies", 1)
+    if copier is not None and all(
+            isinstance(x, np.ndarray) or x.device.type == "cpu"
+            for x in (f, p, c)):
+        return copier.copy((f, p, c),
+                           (torch.float32, torch.float32, torch.int64))
 
     def put(x, dtype):
         if isinstance(x, np.ndarray):

@@ -20,7 +20,10 @@ The counterpart of the JAX package's ``utils/debug.py``:
         ``train_steps_device``), ``train.forward``, ``train.backward`` and
         ``train.adam`` on the device (``train/step``); on the feed's
         thread, kept but not in the trace, ``prefetch.assemble``
-        (``data/prefetch``) and ``train.to_device`` (host and device);
+        (``data/prefetch``) and ``train.to_device`` (host and, on the
+        card, the copy on the trainer's copy stream); the counters
+        ``train.copies``, ``train.copies_pinned`` and ``train.slot_waits``
+        (``data/prefetch.PinnedCopier``);
       - serving: ``serve.batch`` (``serve.caption_images``, a batch from
         the request for its features to its captions), ``serve.load_wait``
         (``vision/etl``), ``decode.greedy`` (device) with one
@@ -120,11 +123,12 @@ _first_event: Optional[torch.cuda.Event] = None
 class _Span:
     """One span of ``annotate`` while a profiler records."""
 
-    __slots__ = ("name", "device", "thread", "parent", "index", "t0", "t1",
-                 "events", "mark")
+    __slots__ = ("name", "device", "stream", "thread", "parent", "index",
+                 "t0", "t1", "events", "mark")
 
-    def __init__(self, name: str, device: bool):
-        self.name, self.device = name, device
+    def __init__(self, name: str, device: bool,
+                 stream: Optional[torch.cuda.Stream]):
+        self.name, self.device, self.stream = name, device, stream
 
     def __enter__(self) -> "_Span":
         global _dropped, _first_event
@@ -141,7 +145,7 @@ class _Span:
         if self.device and torch.cuda.is_initialized():
             self.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
-            self.events[0].record()
+            self.events[0].record(self.stream)
         self.t1 = None
         self.t0 = time.perf_counter_ns()
         with _lock:
@@ -163,26 +167,38 @@ class _Span:
     def __exit__(self, *exc) -> None:
         self.t1 = time.perf_counter_ns()
         if self.events is not None:
-            self.events[1].record()
+            self.events[1].record(self.stream)
         if self.mark is not None:
             self.mark.__exit__(*exc)
         _open.stack.pop()
 
 
-def annotate(name: str, device: bool = False):
+def annotate(name: str, device: bool = False,
+             stream: Optional[torch.cuda.Stream] = None):
     """A span named ``name`` (context manager).  While no profiler records
     (``_is_profiler_enabled``: it follows the profiler's schedule, and
     every thread sees it) it reads that flag and does nothing more.
     While one records it keeps the span (host clock, thread, the innermost
     span open on the same thread as its parent) and, on the main thread
     only, enters ``record_function(name)``, so the trace carries it;
-    ``device`` also records a CUDA event at each end on the current
-    stream, without a wait.  Spans of other threads stay out of the
-    trace: its idle gaps are named by the host event running at their
-    middle, whatever its thread."""
+    ``device`` also records a CUDA event at each end on ``stream`` (the
+    current stream when None), without a wait.  Spans of other threads
+    stay out of the trace: its idle gaps are named by the host event
+    running at their middle, whatever its thread."""
     if not _profiler._is_profiler_enabled:
         return _NOT_RECORDING
-    return _Span(name, device)
+    return _Span(name, device, stream)
+
+
+def restart_device() -> None:
+    """Record the device start of the innermost span open on this thread
+    again, here: for a span whose own host work (staging a copy) comes
+    before its device work.  Nothing while no profiler records."""
+    if not _profiler._is_profiler_enabled:
+        return
+    stack = getattr(_open, "stack", None)
+    if stack and stack[-1].events is not None:
+        stack[-1].events[0].record(stack[-1].stream)
 
 
 def count(name: str, value: Union[int, torch.Tensor]) -> None:

@@ -255,7 +255,9 @@ def train_records():
     s.append(span("train.to_device", None, 8.0, (210.0, 220.0), main=False))
     s.append(span("train.to_device", None, 12.0, (300.0, 305.0),
                   main=False))
-    return {"spans": s, "counters": {}, "dropped": 0}
+    return {"spans": s, "counters": {"train.copies": 4,
+                                     "train.copies_pinned": 3},
+            "dropped": 0}
 
 
 def caption_records():
@@ -286,6 +288,7 @@ READINGS = [
     ("train.forward_ms", train_records, 2, (40.0 + 30.0) / 2),
     ("train.backward_ms", train_records, 2, 40.0),
     ("train.adam_ms", train_records, 2, 10.0),
+    ("train.pinned_copy_share", train_records, 2, 75.0),
     ("caption.load_wait_ms", caption_records, 2, 250.0),
     ("caption.extract_host_ms", caption_records, 2, 400.0),
     ("caption.detect_ms", caption_records, 2, 301.5),
