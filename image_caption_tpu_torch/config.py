@@ -4,6 +4,11 @@ The port's own copy of ``image_caption_tpu/config.py``, so that the PyTorch
 package needs nothing of the JAX one.  Every experiment of the reference
 (shao-chi/Image-Caption, ``core/config.py:71-695``) is a frozen dataclass
 preset, selectable by name and overridable field by field.
+
+``model.architecture`` picks the captioner: ``"transformer"`` (every
+preset of the reference) or ``"mla_moe"``, a decoder-only language model
+with latent attention and routed experts over the region slots
+(``models/lm.py``), sized by the ``lm`` section; the port alone has it.
 """
 
 from __future__ import annotations
@@ -70,7 +75,13 @@ class ModelConfig:
     # numerics: compute dtype for matmuls; params stay f32
     compute_dtype: str = "float32"
 
+    # 'transformer' (models/captioner.py) | 'mla_moe' (models/lm.py, sized
+    # by Config.lm)
+    architecture: str = "transformer"
+
     def __post_init__(self):
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(f"unknown architecture {self.architecture!r}")
         if self.encode_q_k_dim % self.encode_num_heads or \
                 self.encode_v_dim % self.encode_num_heads:
             raise ValueError("encoder widths must divide by the head count")
@@ -86,6 +97,53 @@ class ModelConfig:
     def num_slots(self) -> int:
         """Object slots incl. the whole-image slot (NUM_OBJECT + 1)."""
         return self.num_objects + 1
+
+
+ARCHITECTURES = ("transformer", "mla_moe")
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """The ``mla_moe`` captioner's text model, in the names of DeepSeek-V3's
+    ``config.json`` (the defaults: Kimi-VL-A3B-Instruct's ``text_config``),
+    and the projector that maps a region slot (``dim_features +
+    dim_positions`` wide) into it.  Only what that model uses is
+    supported: no query LoRA, one expert group, sigmoid scores, the
+    chosen scores normalised."""
+
+    hidden_size: int = 2048
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11_264        # the leading dense layers
+    first_k_dense_replace: int = 1
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    routed_scaling_factor: float = 2.446
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800_000.0
+    projector_hidden_size: int = 4608
+
+    def __post_init__(self):
+        if self.kv_lora_rank <= 0 or self.qk_nope_head_dim <= 0 or \
+                self.v_head_dim <= 0 or self.num_attention_heads <= 0:
+            raise ValueError("attention sizes must be positive")
+        if self.qk_rope_head_dim <= 0 or self.qk_rope_head_dim % 2:
+            raise ValueError("qk_rope_head_dim must be positive and even")
+        if not 0 < self.num_experts_per_tok <= self.n_routed_experts:
+            raise ValueError("num_experts_per_tok must lie in "
+                             "1..n_routed_experts")
+        if not 0 <= self.first_k_dense_replace <= self.num_hidden_layers:
+            raise ValueError("first_k_dense_replace exceeds the layers")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclass(frozen=True)
@@ -149,6 +207,16 @@ class Config:
     rl: RLConfig = field(default_factory=RLConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    lm: LMConfig = field(default_factory=LMConfig)
+
+    def __post_init__(self):
+        if self.model.architecture == "mla_moe":
+            if self.model.max_length < 2:
+                # the latent cache holds the slots, <START> and the fed
+                # tokens: max_length - 1 positions after the slots
+                raise ValueError("an mla_moe captioner needs max_length >= 2")
+            if self.model.num_vocab <= UNK_IDX:
+                raise ValueError("the vocabulary must hold the special ids")
 
     def with_overrides(self, **kwargs) -> "Config":
         """Apply dotted overrides, e.g. ``model.dropout=0.1``.  The fields of
@@ -446,4 +514,17 @@ register_preset(Config(
     name="maxlen49_128_14b_16h",
     caption_model="Transformer",
     model=_d128_14b_16h(encode_mask=False),
+))
+
+# Kimi-VL-A3B-Instruct's text model (huggingface.co/moonshotai/
+# Kimi-VL-A3B-Instruct, config.json) over the 37 region slots: ResNet-101
+# features and YOLOv5 positions through a projector in the shape of
+# Kimi-VL's, in place of MoonViT (models/lm.py)
+register_preset(Config(
+    name="kimi_vl_a3b_regions",
+    caption_model="Transformer",
+    model=ModelConfig(num_vocab=163_840, max_length=51, num_objects=36,
+                      dim_features=2048, dim_positions=84,
+                      architecture="mla_moe"),
+    lm=LMConfig(),
 ))

@@ -90,16 +90,15 @@ def _restore_model(cfg: Config, epoch: Optional[int], device):
     """The captioner of ``{output_path}/model/train_state_{epoch}.pt`` (the
     model part only; the latest epoch when ``epoch`` is None) on
     ``device``, and its epoch."""
-    from .models.captioner import Captioner
+    from .models.lm import restore_captioner
     from .train.checkpoint import CheckpointManager
     ckpt = CheckpointManager(os.path.join(cfg.data.output_path, "model"))
     epoch = epoch if epoch is not None else ckpt.latest_epoch()
     if epoch not in ckpt.all_epochs():
         raise SystemExit(f"no checkpoint of epoch {epoch} under "
                          f"{ckpt.directory}")
-    model = Captioner(cfg.model, device=device)
-    model.load_state_dict(ckpt.load_model_state(epoch))
-    return model, epoch
+    return (restore_captioner(cfg, ckpt.load_model_state(epoch),
+                              device=device), epoch)
 
 
 def cmd_evaluation(args) -> None:
@@ -155,7 +154,9 @@ def cmd_demo(args) -> None:
     import numpy as np
     import torch
     from .data.vocab import decode_captions, invert_vocab
-    from .models.decoding import beam_score_mode, beam_search, greedy_decode
+    from .models.decoding import (beam_score_mode, beam_search,
+                                  greedy_decode, lm_greedy_decode)
+    from .models.lm import LMCaptioner
     from .utils.device import resolve_device
     from .utils.io import load_pickle
     from .vision.pipeline import extract_single_image
@@ -173,7 +174,11 @@ def cmd_demo(args) -> None:
 
     feats_b = torch.from_numpy(feats[None]).to(device)
     poss_b = torch.from_numpy(poss[None]).to(device)
-    if args.beam_size and args.beam_size > 1:
+    if isinstance(model, LMCaptioner):
+        # greedy only, and no cross-attention to overlay
+        tokens = lm_greedy_decode(model, feats_b, poss_b, device=device)
+        attention = None
+    elif args.beam_size and args.beam_size > 1:
         tokens = beam_search(model, feats_b, poss_b,
                              beam_size=args.beam_size,
                              score_mode=beam_score_mode(cfg.caption_model),
@@ -239,6 +244,9 @@ def cmd_caption(args) -> None:
         raise SystemExit("no images: pass --image-dir and/or --images")
     idx_to_word = invert_vocab(load_pickle(d.word_to_idx_path))
 
+    if args.checkpoint and cfg.model.architecture != "transformer":
+        raise SystemExit("--checkpoint reads the reference repository's "
+                         "Transformer checkpoints only")
     if args.checkpoint:
         model = load_reference_checkpoint(args.checkpoint, cfg.model,
                                           device=device)

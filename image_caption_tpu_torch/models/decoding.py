@@ -19,6 +19,13 @@ lane, and ``ancestry`` records which lane wrote each position of a
 hypothesis.  The caches are updated in place; nothing else holds them.
 Every top-k goes through ``topk_lowest_index``, the tie rule of
 ``jax.lax.top_k``.
+
+``lm_greedy_decode`` is the greedy decode of the ``mla_moe`` captioner
+(``models/lm.py``) under the same token contract: one prefill over the
+slots and <START> writes every layer's latent cache (``decode.prefill``),
+then each step feeds the last token through it (``decode.step``, on the
+device; on CUDA its segments replay as captured graphs, so the host
+enqueues a step in about a hundred launches).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from ..utils.debug import annotate
 from ..utils.device import DeviceLike, resolve_device
 from .captioner import Captioner
 from .layers import MultiHeadAttention
+from .lm import LMCaptioner
 
 
 def topk_lowest_index(x: torch.Tensor,
@@ -57,7 +65,7 @@ def beam_score_mode(caption_model: str) -> str:
 
 def _inputs(model: Captioner, object_features, position_features,
             device: DeviceLike):
-    if model.tp is not None:
+    if getattr(model, "tp", None) is not None:
         raise ValueError("decode runs on a full replica of a sharded model "
                          "(parallel.tensor.full_state_dict), not its shard")
     device = resolve_device(device)
@@ -226,6 +234,36 @@ def greedy_decode(model: Captioner, object_features, position_features, *,
                 if return_attention:
                     attn.append(cross_attn.mean(dim=1))
     return tokens, (torch.stack(attn) if return_attention else None)
+
+
+@torch.no_grad()
+def lm_greedy_decode(model: LMCaptioner, object_features, position_features,
+                     *, device: DeviceLike = None) -> torch.Tensor:
+    """Greedy decode of the ``mla_moe`` captioner: tokens [B, max_length+1]
+    int64 on the model's device, <START> first, then ``max_length - 1``
+    argmax tokens (no early stop), the last column 0 as in
+    ``greedy_decode``."""
+    cfg = model.cfg
+    with annotate("decode.greedy", device=True):
+        feats, poss = _inputs(model, object_features, position_features,
+                              device)
+        b = feats.shape[0]
+        tokens = torch.zeros((b, cfg.max_length + 1), dtype=torch.long,
+                             device=feats.device)
+        tokens[:, 0] = START_IDX
+        st = model.step_state(b)
+        with annotate("decode.prefill", device=True):
+            logits = model.prefill(feats, poss, tokens[:, 0], st.cache)
+            tokens[:, 1] = logits.argmax(dim=-1)
+        st.token.copy_(tokens[:, 1])
+        st.pos.fill_(model.prefix)
+        for t in range(2, cfg.max_length):
+            with annotate("decode.step", device=True):
+                model.run_step(st)
+                tokens[:, t] = st.next
+                st.token.copy_(st.next)
+                st.pos.add_(1)
+    return tokens
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,12 @@
     ResNet-101 with the fused bottleneck kernel) straight into the same
     decode, without touching disk.
 
+Both decode through ``_decode``, which takes the captioner's own route:
+the encoder-decoder's greedy or beam decode, or, for the ``mla_moe``
+captioner (``models/lm.py``), its prefill and greedy steps over the latent
+cache (``lm_greedy_decode``; greedy only).  ``decode_split`` opens a span
+``serve.decode_batch`` a batch.
+
 Both take a ``mesh`` (``parallel.mesh``) and then split each batch over
 its data axis, on replicated parameters, as the JAX package does; a model
 axis replicates (each data index's rows run once in one process; in a
@@ -37,7 +43,9 @@ from .config import Config
 from .data.dataset import CocoSplit, ImageBatches
 from .data.vocab import decode_captions
 from .models.captioner import Captioner
-from .models.decoding import beam_score_mode, beam_search, greedy_decode
+from .models.decoding import (beam_score_mode, beam_search, greedy_decode,
+                              lm_greedy_decode)
+from .models.lm import LMCaptioner
 from .parallel.mesh import Mesh, decode_placement, gather_rows
 from .utils.debug import annotate
 from .utils.device import DeviceLike, resolve_device
@@ -48,6 +56,11 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 def _decode(model: Captioner, cfg: Config, feats, poss,
             beam_size: Optional[int], use_kernel: bool,
             device: DeviceLike) -> torch.Tensor:
+    if isinstance(model, LMCaptioner):
+        if beam_size is not None and beam_size > 1:
+            raise ValueError("the mla_moe captioner decodes greedily; beam "
+                             "search over its latent cache is not built")
+        return lm_greedy_decode(model, feats, poss, device=device)
     if beam_size is None or beam_size <= 1:
         return greedy_decode(model, feats, poss, use_kernel=use_kernel,
                              device=device)[0]
@@ -88,13 +101,15 @@ def decode_split(model: Captioner, cfg: Config, split: CocoSplit,
     models, place = decode_placement(mesh, model, batch_size)
     out: List[Optional[str]] = [None] * split.num_images
     for feats, poss, idxs, real in ImageBatches(split, batch_size):
-        if place is None:
-            tokens = _decode(model, cfg, feats, poss, beam_size, True,
-                             device).cpu().numpy()
-        else:
-            tokens = _decode_sharded(models, place, cfg, feats, poss,
-                                     beam_size, True, mesh)
-        strs = decode_captions(tokens[:real], idx_to_word)
+        # a batch's span runs from its features on the host to its captions
+        with annotate("serve.decode_batch"):
+            if place is None:
+                tokens = _decode(model, cfg, feats, poss, beam_size, True,
+                                 device).cpu().numpy()
+            else:
+                tokens = _decode_sharded(models, place, cfg, feats, poss,
+                                         beam_size, True, mesh)
+            strs = decode_captions(tokens[:real], idx_to_word)
         for i, s in zip(idxs[:real], strs):
             out[int(i)] = s
     return [s if s is not None else "" for s in out]

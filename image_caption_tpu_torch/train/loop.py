@@ -86,6 +86,14 @@ class Trainer:
 
     def __init__(self, cfg: Config, *, mesh: Optional[Mesh] = None,
                  device: DeviceLike = None, seed: Optional[int] = None):
+        # a configuration without the field (the JAX package's) is the
+        # caption Transformer's
+        arch = getattr(cfg.model, "architecture", "transformer")
+        if arch != "transformer":
+            raise ValueError(
+                f"model.architecture={arch!r} serves only: "
+                "the port trains the caption Transformer (training the "
+                "mla_moe captioner needs its experts sharded over cards)")
         self.cfg = cfg
         self.mesh = mesh
         if mesh is not None:

@@ -30,7 +30,15 @@ The counterpart of the JAX package's ``utils/debug.py``:
         ``decode.step`` a step (``models/decoding``), and in a step
         ``decode.self_attention``, ``decode.cross_attention``,
         ``decode.feed_forward`` a block and ``decode.classifier``;
-        ``serve.tokens_to_host``;
+        ``serve.tokens_to_host``; ``serve.decode_batch`` a batch of
+        ``serve.decode_split``; the ``mla_moe`` captioner's
+        ``decode.greedy`` holds ``decode.prefill`` and one ``decode.step``
+        a step, both on the device, and in each ``mla.attention`` a layer
+        and ``moe.route``, ``moe.experts`` and ``moe.shared`` a MoE layer,
+        all on the device (``models/lm``); the counters
+        ``moe.rows_routed`` (rows sent to experts) and
+        ``moe.experts_touched`` (the distinct experts of each MoE call,
+        summed; kept on the card) from ``ops/experts``;
       - extraction: ``extract.batch`` (host and device) over
         ``extract.detect``, ``extract.crops`` and ``extract.resnet`` on the
         device (``vision/pipeline``, both detectors), ``nms.step`` a pick
@@ -188,6 +196,12 @@ def annotate(name: str, device: bool = False,
     if not _profiler._is_profiler_enabled:
         return _NOT_RECORDING
     return _Span(name, device, stream)
+
+
+def recording() -> bool:
+    """Whether a profiler records: guards a counter whose value costs a
+    launch to compute."""
+    return _profiler._is_profiler_enabled
 
 
 def restart_device() -> None:

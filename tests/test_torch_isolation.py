@@ -82,10 +82,26 @@ def test_importing_every_port_module_loads_no_jax():
     assert int(out.stdout.split()[0]) >= 12, out.stdout
 
 
+# what the port alone has: the mla_moe captioner's preset, and the fields
+# that select and size it (at their defaults in every shared preset)
+PORT_ONLY_PRESETS = ["kimi_vl_a3b_regions"]
+
+
+def _shared_fields(cfg) -> dict:
+    """``asdict(cfg)`` without the port-only fields, which must hold their
+    defaults."""
+    assert cfg.model.architecture == "transformer"
+    assert cfg.lm == TCFG.LMConfig()
+    out = dataclasses.asdict(cfg)
+    del out["lm"], out["model"]["architecture"]
+    return out
+
+
 def test_presets_equal_the_jax_package():
-    assert TCFG.list_presets() == JCFG.list_presets()
+    assert TCFG.list_presets() == sorted(JCFG.list_presets()
+                                         + PORT_ONLY_PRESETS)
     for name in JCFG.list_presets():
-        assert dataclasses.asdict(TCFG.get_preset(name)) == \
+        assert _shared_fields(TCFG.get_preset(name)) == \
             dataclasses.asdict(JCFG.get_preset(name)), name
     for token in ("NULL", "START", "END", "UNK"):
         assert getattr(TCFG, f"{token}_TOKEN") == \
@@ -97,7 +113,7 @@ def test_overrides_equal_the_jax_package():
     overrides = {"model.num_vocab": 50, "model.max_length": 13,
                  "train.batch_size": 4, "caption_model": "Transformer"}
     name = "RL_maxlen49_36obj_1wordCount_256_25b_32h_split_img_obj"
-    assert dataclasses.asdict(
+    assert _shared_fields(
         TCFG.get_preset(name).with_overrides(**overrides)) == \
         dataclasses.asdict(JCFG.get_preset(name).with_overrides(**overrides))
 
@@ -107,6 +123,17 @@ def test_bad_model_config_raises():
         TCFG.ModelConfig(encode_num_heads=7)
     with pytest.raises(ValueError):
         TCFG.ModelConfig(compute_dtype="float16")
+    with pytest.raises(ValueError):
+        TCFG.ModelConfig(architecture="mamba")
+    with pytest.raises(ValueError):
+        TCFG.LMConfig(num_experts_per_tok=65)
+    with pytest.raises(ValueError):
+        TCFG.LMConfig(qk_rope_head_dim=63)
+    with pytest.raises(ValueError):
+        TCFG.LMConfig(first_k_dense_replace=28)
+    with pytest.raises(ValueError):
+        TCFG.get_preset("kimi_vl_a3b_regions").with_overrides(
+            **{"model.max_length": 1})
     with pytest.raises(KeyError):
         TCFG.get_preset("no_such_preset")
 
