@@ -31,6 +31,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    runs, median of 50), beside the least time the card could take; the
    forward at the serving and the decoder's training shapes, the backward
    at the four training shapes, each of these also at 16 heads;
+5b. mla_decode: the latent attention of the ``mla_moe`` decode step
+    (``csrc/mla_decode.cu``, bf16) at the ``kimi_vl_a3b`` cell's step
+    (batch 1024, 87 cache rows, the cell's share of pad slots) at
+    positions 38, 62 and 86, on the card tests' inputs: against the plain
+    version on the CPU (max|c| / 128 + |plain| / 64); its device time
+    beside its byte bound (the visible rows), the plain version's and the
+    chain it replaced (two bf16 bmms and the passes between), cycling four
+    input sets so the cache comes from device memory;
+5c. kimi decode: the ``kimi_vl_a3b.decode_greedy`` cell's model at full
+    size (meta, then filled on the card with the benchmark's seeded
+    weights) decodes a batch of 1024 of the cell's region features through
+    ``decode_split``, then a second: kernel #5's launches on each (27 on
+    the eager first step and 27 at capture, then none: the steps replay
+    graphs); the first step again with the plain version in the kernel's
+    place and the kernel beside it at each of the 27 layers, on the same
+    inputs (the card tests' tolerance); the logits of both passes and the
+    rows a router near-tie sent to other experts, printed;
 6. slice (serving): the flagship captioner at full width, random weights
    from ``torch.Generator`` seed 0, decodes a 70-image split greedily and
    with beam 3 through ``decode_split``; the kernel launch counts are read
@@ -222,6 +239,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -764,6 +782,267 @@ def time_kernel_bwd(card: str):
               f"backward {row['library_ms']:.5f} ms (fwd+bwd minus fwd "
               f"{fwd_ms:.5f}) [{card}]", flush=True)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the mla_moe decode step's latent attention (csrc/mla_decode.cu)
+# ---------------------------------------------------------------------------
+
+# the kimi_vl_a3b cell's step: batch 1024, 87 cache rows (37 slots + 51
+# tokens - 1); the first step's position, a middle one and the last
+MLA_BATCH, MLA_ROWS = 1024, 87
+MLA_POSITIONS = (38, 62, 86)
+# the cell's share of valid region slots: 1 to 35 objects, uniformly, and
+# the whole-image slot, of 37 (benchmark/data/split.make_split)
+MLA_KEEP = 19 / 37
+# input sets a timed run cycles through: four caches of up to 103 MB
+# outrun the 50 MB L2, as the experts' weight reads between two layers'
+# attention do in the step
+MLA_SETS = 4
+
+
+def card_tests():
+    """The module of kernel #5's card tests, loaded from its file
+    (``tests/test_torch_latent_attention.py``; another ``tests`` package
+    may come first on the path): phase 5b takes its input builder, its copy
+    of the parent's chain and its tolerance."""
+    import importlib.util
+    mod = sys.modules.get("test_torch_latent_attention")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "test_torch_latent_attention",
+            os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "test_torch_latent_attention.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[spec.name] = mod
+    return mod
+
+
+def mla_case(pos: int, seed: int):
+    """One step's inputs at ``pos`` on the card, as the card tests build
+    them (``case``), with the cell's share of pad slots."""
+    import torch
+    from image_caption_tpu_torch.ops import latent_attention as LA
+    return card_tests().case(MLA_BATCH, LA.HEADS, LA.LATENT, LA.ROPE,
+                             MLA_ROWS, pos, torch.bfloat16, device="cuda",
+                             seed=seed, keep=MLA_KEEP)
+
+
+def mla_bound(visible, pos: int):
+    """The least time of one launch at ``pos`` over ``visible`` [B, T]
+    (ms), what bounds it, the bytes, and the share of the cache rows the
+    kernel loads that are pad rows: the visible rows, q and the output
+    moved once at 3.35 TB/s, or the two products over those rows at 989
+    TFLOP/s.  The kernel loads every row up to pos; a pad row among them
+    is no work of the function's."""
+    b, rows = visible.shape[0], int(visible.sum())
+    loaded = b * (pos + 1)
+    nbytes = 2 * (rows * 576 + b * 16 * (512 + 576))
+    flops = 2 * 16 * rows * (512 + 576)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            1 - rows / loaded)
+
+
+def check_mla_decode() -> float:
+    """The kernel against the plain version on the CPU at each position,
+    within the card tests' tolerance (``assert_close_to_plain``: max|c| /
+    128 + |plain| / 64).  Returns the largest error."""
+    from image_caption_tpu_torch.ops import latent_attention as LA
+    tests = card_tests()
+    worst = 0.0
+    for pos in MLA_POSITIONS:
+        args = mla_case(pos, pos)
+        got = LA.latent_attention(*args)
+        want = tests.plain_on_the_cpu(args)
+        tests.assert_close_to_plain(got, want, args[2])
+        err = float((got.cpu().float() - want.float()).abs().max())
+        worst = max(worst, err)
+        print(f"kernel check mla_decode B {MLA_BATCH} T {MLA_ROWS} pos "
+              f"{pos} bf16: max |kernel - plain| {err:.3e} (max|out| "
+              f"{float(want.float().abs().max()):.3f})", flush=True)
+    return worst
+
+
+def time_mla_decode(card: str):
+    """The kernel, the plain version and the parent's chain (the card
+    tests' ``inline_core``: two bf16 bmms and the passes between) at each
+    position, cycling through ``MLA_SETS`` input sets (the cache read from
+    device memory, not L2), beside the bound."""
+    from image_caption_tpu_torch.ops import latent_attention as LA
+    inline_core = card_tests().inline_core
+
+    def parent_chain(q_lat, q_pe, cache, visible, pos, scale):
+        return inline_core(q_lat, q_pe, cache, visible, scale)
+    rows = {}
+    for pos in MLA_POSITIONS:
+        sets = [mla_case(pos, 10 * pos + i) for i in range(MLA_SETS)]
+
+        def cycling(fn):
+            calls = [0]
+
+            def call():
+                calls[0] += 1
+                return fn(*sets[calls[0] % MLA_SETS])
+            return call
+        kernel = cycling(LA.latent_attention)
+        row = {"shape": (MLA_BATCH, 16, MLA_ROWS, pos),
+               "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+               "plain_ms": device_ms(cycling(
+                   LA.latent_attention_reference)),
+               "library_ms": device_ms(cycling(parent_chain))}
+        bounds = [mla_bound(s[3], pos) for s in sets]
+        row["bound_ms"] = statistics.fmean(x[0] for x in bounds)
+        row["bound_by"] = bounds[0][1]
+        row["bytes"] = round(statistics.fmean(x[2] for x in bounds))
+        row["pad_share"] = statistics.fmean(x[3] for x in bounds)
+        rows[f"pos{pos}"] = row
+        print(f"time mla_decode (B,H,T,pos) {row['shape']} bf16: kernel "
+              f"{row['ms'] * 1e3:.2f} us on the device ({row['call_ms']:.5f}"
+              f" ms a call with its launch), bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+              f"{row['bytes']} B, visible rows only; pad rows are "
+              f"{100 * row['pad_share']:.1f}% of the cache rows loaded): "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of it; plain "
+              f"{row['plain_ms']:.5f} ms, the parent's chain "
+              f"{row['library_ms']:.5f} ms [{card}]", flush=True)
+        del sets
+    return rows
+
+
+def drive_mla_decode(card: str):
+    """Phase 5b: (the largest error, the timed rows)."""
+    return check_mla_decode(), time_mla_decode(card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the kimi_vl_a3b captioner's decode, as the benchmark's cell does
+# ---------------------------------------------------------------------------
+
+KIMI_CELL = "kimi_vl_a3b.decode_greedy"
+KIMI_SEED = 2 ** 31 + 19
+
+
+def drive_kimi_decode(card: str) -> int:
+    """Phase 5c: the cell's model (``benchmark/configs/kimi_vl_a3b.json``
+    at full size, built on ``meta`` and filled on the card from the
+    benchmark's seeded bf16 weights) decodes one batch of 1024 of the
+    cell's region features through ``serve.decode_split``; kernel #5's
+    launches are counted over that batch (the first step eager, then each
+    segment captured; the later steps replay graphs and launch nothing
+    through the wrapper) and over a second batch on the same model (none).
+    Then the first step again, eagerly, from the same features and token,
+    with the plain version in the kernel's place: at each layer the kernel
+    runs on the same inputs too and must lie within the card tests'
+    tolerance of it (``assert_close_to_plain``).  The decode's first-step
+    logits beside this pass's are printed, not held to a limit: a weight P
+    one bf16 ulp apart in a few rows can flip a router's near-tie, which
+    changes that row's experts and logits (the rows whose experts moved
+    are counted).  Returns the first batch's launches; the caller collects
+    the model (its step state holds cycles)."""
+    import torch
+    from benchmark import harness
+    from benchmark.data.split import make_split
+    from benchmark.drivers.caption import vocabulary
+    from benchmark.drivers.decode_features import program_config, split_of
+    from benchmark.reference import kimi_vl as RK
+    from image_caption_tpu_torch import serve
+    from image_caption_tpu_torch.config import START_IDX
+    from image_caption_tpu_torch.models import lm as LM
+    from image_caption_tpu_torch.ops import latent_attention as LA
+    cell = harness.resolve(KIMI_CELL)
+    c, b = cell.config, cell.traffic["batch"]
+    cfg = program_config(c)
+    m = cfg.model
+    t0 = time.perf_counter()
+    model = LM.LMCaptioner.from_state_dict(
+        cfg, RK.state_dict(c, KIMI_SEED, "cuda"), device="cuda")
+    feats, poss, _, _ = make_split(
+        {"num_objects": m.num_objects, "max_length": m.max_length,
+         "dim_features": m.dim_features, "dim_positions": m.dim_positions,
+         "num_vocab": m.num_vocab}, b, 1, KIMI_SEED + 1, "cuda")
+    words = vocabulary(m.num_vocab)
+    print(f"kimi decode: {KIMI_CELL}'s model and one batch of its features "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    first = {}
+    real_step = model.run_step
+
+    def tapped(st):
+        if not first:
+            first["token"] = st.token.clone()
+        out = real_step(st)
+        if "logits" not in first:
+            first["logits"] = out.clone()
+            first["idx"] = {i: x.sort(-1)[0] for i, x in st.idx.items()}
+        return out
+    model.run_step = tapped
+    LA.latent_attention.launches = 0
+    t0 = time.perf_counter()
+    serve.decode_split(model, cfg, split_of(feats, poss, b), b, words,
+                       device="cuda")
+    launches = LA.latent_attention.launches
+    t1 = time.perf_counter()
+    serve.decode_split(model, cfg, split_of(feats, poss, b), b, words,
+                       device="cuda")
+    again = LA.latent_attention.launches - launches
+    t2 = time.perf_counter()
+    del model.run_step
+    layers = len(model.layers)
+    print(f"kimi decode: kernel #5 launched {launches} times over the "
+          f"first batch of {b} ({t1 - t0:.2f} s, captures included), "
+          f"{again} over the second ({t2 - t1:.2f} s) [{card}]", flush=True)
+    if launches != 2 * layers or again != 0:
+        raise AssertionError(f"kernel #5: {launches} and {again} launches, "
+                             f"expected {2 * layers} (the eager first step "
+                             f"and the capture) and 0")
+    # the first step again, eager, the plain version in the kernel's place
+    # and the kernel beside it on the same inputs
+    tests = card_tests()
+    errs = []
+
+    def both(q_lat, q_pe, cache, visible, pos, scale):
+        got = LA.latent_attention(q_lat, q_pe, cache, visible, pos, scale)
+        want = LA.latent_attention_reference(q_lat, q_pe, cache, visible,
+                                             pos, scale)
+        tests.assert_close_to_plain(got, want.cpu(), cache)
+        errs.append(float((got.float() - want.float()).abs().max()))
+        return want
+    st = LM.StepState(model, b)
+    f = torch.as_tensor(feats, device="cuda")
+    p = torch.as_tensor(poss, device="cuda")
+    model.prefill(f, p, torch.full((b,), START_IDX, device="cuda"),
+                  st.cache)
+    st.token.copy_(first["token"])
+    st.pos.fill_(model.prefix)
+    LM.latent_attention = both
+    try:
+        with torch.no_grad():
+            for _, fn, _ in st.segments:
+                fn()
+    finally:
+        LM.latent_attention = LA.latent_attention
+    print(f"kimi decode: the first step, {len(errs)} layers: the kernel "
+          f"within the card tests' tolerance of the plain version on each "
+          f"layer's inputs, max |kernel - plain| {max(errs):.3e}", flush=True)
+    got, want = first["logits"], st.logits
+    rows = ((got - want).pow(2).mean(-1).sqrt()
+            / want.pow(2).mean(-1).sqrt())
+    moved = torch.zeros(b, dtype=torch.bool, device="cuda")
+    for i, x in st.idx.items():
+        moved |= (x.sort(-1)[0] != first["idx"][i]).any(-1)
+    differ, kept = rows > 0, rows[~moved]
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"kimi decode: the first step's logits, the decode (kernel) "
+          f"against the plain pass: {int(differ.sum())} of {b} rows differ "
+          f"(relative RMS median {float(rows.median()):.3e}, max "
+          f"{float(rows.max()):.3e}; the same argmax in {100 * same:.2f}% "
+          f"of rows); {int(moved.sum())} rows routed to other experts at "
+          f"some layer, {int((differ & moved).sum())} of them differ; the "
+          f"rows routed alike differ by at most "
+          f"{float(kept.max()) if len(kept) else 0.0:.3e}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4041,6 +4320,10 @@ def main() -> int:
     err_f32, rows_f32 = check_stage_f32_frcnn(card)
     max_err_bneck["fused_stage"] = max(max_err_bneck["fused_stage"], err_f32)
     times_bneck["fused_stage"].update(rows_f32)
+    max_err_mla, times_mla = drive_mla_decode(card)
+    kimi_launches = drive_kimi_decode(card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     from image_caption_tpu_torch.ops.attention import (fused_attention,
                                                        fused_attention_bwd)
@@ -4189,6 +4472,10 @@ def main() -> int:
                **dp("fused_stage")},
               max_err_bneck["fused_stage"], times_bneck["fused_stage"],
               "stage3_bfloat16"),
+        entry("mla_decode", "image_caption_tpu_torch/csrc/mla_decode.cu",
+              "none: the JAX package has no mla_moe captioner",
+              {"kimi_decode": kimi_launches}, max_err_mla, times_mla,
+              "pos62"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,7 +25,9 @@ Every top-k goes through ``topk_lowest_index``, the tie rule of
 slots and <START> writes every layer's latent cache (``decode.prefill``),
 then each step feeds the last token through it (``decode.step``, on the
 device; on CUDA its segments replay as captured graphs, so the host
-enqueues a step in about a hundred launches).
+enqueues a step in about a hundred launches).  While a profiler records it
+counts the prefix's keys (``mla.prefix_keys``) and those a step may attend
+(``mla.prefix_keys_visible``; the others are pad slots).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from ..config import END_IDX, NULL_IDX, START_IDX, ModelConfig
 from ..ops.attention import masked_softmax
-from ..utils.debug import annotate
+from ..utils.debug import annotate, count, recording
 from ..utils.device import DeviceLike, resolve_device
 from .captioner import Captioner
 from .layers import MultiHeadAttention
@@ -255,6 +257,10 @@ def lm_greedy_decode(model: LMCaptioner, object_features, position_features,
         with annotate("decode.prefill", device=True):
             logits = model.prefill(feats, poss, tokens[:, 0], st.cache)
             tokens[:, 1] = logits.argmax(dim=-1)
+        if recording():
+            count("mla.prefix_keys", b * model.prefix)
+            count("mla.prefix_keys_visible",
+                  st.cache.key_ok[:, :model.prefix])
         st.token.copy_(tokens[:, 1])
         st.pos.fill_(model.prefix)
         for t in range(2, cfg.max_length):

@@ -39,7 +39,9 @@ de-interleaved to [even ‖ odd], then ``x cos + rotate_half(x) sin`` with
 de-interleaved.  The cache keeps, a layer and a token, ``c`` and the roped
 ``k_pe`` (kv_lora_rank + qk_rope wide).  Prefill runs the expanded form
 above; a decode step absorbs ``W_kv_b``:
-``q_nope·k_nope = (W_uk_hᵀ q_nope)·c`` and ``Σ a v = W_uv_h (Σ a c)``.
+``q_nope·k_nope = (W_uk_hᵀ q_nope)·c`` and ``Σ a v = W_uv_h (Σ a c)``, with
+the attention over the cache between the two products in
+``ops/latent_attention`` (on the card one kernel, its scores in float32).
 
 MoE (``noaux_tc`` with one group), over E routed experts:
 
@@ -86,6 +88,7 @@ from torch import nn
 
 from ..config import Config, LMConfig, ModelConfig
 from ..ops.experts import grouped_experts
+from ..ops.latent_attention import latent_attention
 from ..utils.debug import annotate, count, recording
 from ..utils.device import DeviceLike, resolve_device
 
@@ -286,12 +289,8 @@ class MLA(nn.Module):
         q_nope, q_pe = q[:, :, 0].split([lm.qk_nope_head_dim,
                                          lm.qk_rope_head_dim], dim=-1)
         q_lat = torch.einsum("bhd,hdc->bhc", q_nope, w_uk)
-        scores = torch.bmm(torch.cat([q_lat, q_pe], dim=-1),
-                           cache.transpose(1, 2)) * self.scale
-        scores = scores.float().masked_fill(~visible[:, None],
-                                            float("-inf"))
-        a = torch.softmax(scores, dim=-1).to(cache.dtype)
-        out_lat = torch.bmm(a, cache[..., :r])
+        out_lat = latent_attention(q_lat, q_pe, cache, visible, pos,
+                                   self.scale)
         out = torch.einsum("bhc,hdc->bhd", out_lat, w_uv)
         return self.o_proj(out.reshape(b, -1))
 

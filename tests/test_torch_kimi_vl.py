@@ -348,3 +348,9 @@ def test_spans_and_counters_only_while_a_profiler_records(tiny):
     touched = recs["counters"]["moe.experts_touched"]
     assert moe_layers * calls <= touched <= TINY["n_routed_experts"] \
         * moe_layers * calls
+    # the prefix's keys, and those a step attends: the slots that are not
+    # pad (row 1 keeps 3, row 2 none) and <START>
+    assert recs["counters"]["mla.prefix_keys"] == 3 * model.prefix
+    pad = (p == 0).all(dim=-1)
+    assert recs["counters"]["mla.prefix_keys_visible"] == \
+        int((~pad).sum()) + 3
