@@ -20,9 +20,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    group of two, and at a sequence-parallel rank's shapes (its block of
    slots against every slot: Lq 7 against Lk 21, Lq 12 against Lk 36,
    and its 12 slots' pairs);
-4. gradient check: ``torch.autograd.grad`` through
-   ``sdp_attention(use_kernel=True)`` (the two kernels) and through the
-   plain path on the card agree for q, k and v; two launches of each
+4. gradient check: ``torch.autograd.grad`` through ``sdp_attention``
+   without weights (the two kernels) and with them (the plain path) on
+   the card agree for q, k and v; two launches of each
    attention kernel at each training shape in float32, at 32 and at 16
    heads, are bitwise equal;
 5. times: each kernel, its plain version and one PyTorch library call for
@@ -566,10 +566,11 @@ def check_kernel_bwd(device) -> float:
 
 def check_gradients(device) -> float:
     """``torch.autograd.grad`` through ``sdp_attention`` on the kernel route
-    and on the plain path, encoder case in float32 (items 3 and 17 fully
-    masked): the q, k and v gradients must agree within ``check_kernel``'s
-    tolerance, and on the card the kernel route must launch the backward
-    kernel.  Returns the largest error."""
+    (no weights wanted) and on the plain path (weights wanted), encoder
+    case in float32 (items 3 and 17 fully masked): the q, k and v gradients
+    must agree within ``check_kernel``'s tolerance, and on the card the
+    kernel route must launch the backward kernel.  Returns the largest
+    error."""
     import torch
     from image_caption_tpu_torch.ops.attention import (fused_attention_bwd,
                                                        sdp_attention)
@@ -577,15 +578,14 @@ def check_gradients(device) -> float:
     q, k, v, m, t = on(case, device, torch.float32)
     do = torch.from_numpy(case["do"]).to(device)
     grads = {}
-    for use_kernel in (True, False):
+    for kernel in (True, False):
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         before = fused_attention_bwd.launches
-        out, _ = sdp_attention(*leaves, m != 0, t, use_kernel=use_kernel,
-                               need_weights=False)
-        grads[use_kernel] = torch.autograd.grad(out, leaves, do)
+        out, _ = sdp_attention(*leaves, m != 0, t, need_weights=not kernel)
+        grads[kernel] = torch.autograd.grad(out, leaves, do)
         launched = fused_attention_bwd.launches - before
-        if device != "cpu" and launched != int(use_kernel):
-            raise AssertionError(f"use_kernel={use_kernel}: {launched} "
+        if device != "cpu" and launched != int(kernel):
+            raise AssertionError(f"need_weights={not kernel}: {launched} "
                                  f"backward kernel launches")
     if device != "cpu":
         torch.cuda.synchronize()
@@ -1210,7 +1210,7 @@ def check_against_cpu(model, cfg, split, batch_size: int):
     f = split.features[:batch_size]
     p = split.positions[:batch_size]
     c = split.captions[:batch_size]
-    got = model.logits(f, p, c, use_kernel=True).cpu()
+    got = model.logits(f, p, c).cpu()
     want = cpu.logits(f, p, c)
     err = (got - want).abs().max().item()
     print(f"cpu check: teacher-forced logits {tuple(want.shape)} max_abs_err "
@@ -1218,8 +1218,7 @@ def check_against_cpu(model, cfg, split, batch_size: int):
     if not err <= 2e-4:
         raise AssertionError(f"card and CPU logits differ by {err:.3e}")
 
-    tok_gpu = greedy_decode(model, f, p, use_kernel=True,
-                            device=model.device)[0].cpu()
+    tok_gpu = greedy_decode(model, f, p, device=model.device)[0].cpu()
     tok_cpu = greedy_decode(cpu, f, p, device="cpu")[0]
     # the CPU's logits at every greedy step, teacher-forced on its tokens
     step_logits = cpu.logits(f, p, tok_cpu[:, :m.max_length])
@@ -1384,10 +1383,10 @@ def train_against_cpu(cfg, card: str, device: str = "cuda"):
     batch = train_batch(off.model, off.train.batch_size, seed=4)
     worst_grad, worst_loss = 0.0, 0.0
     for step in range(3):
-        lg = train_step(gpu.state, gpu.to_device(batch), seed=0,
-                        use_kernel=True)["loss"].item()
-        lc = train_step(cpu.state, cpu.to_device(batch), seed=0,
-                        use_kernel=False)["loss"].item()
+        lg = train_step(gpu.state, gpu.to_device(batch),
+                        seed=0)["loss"].item()
+        lc = train_step(cpu.state, cpu.to_device(batch),
+                        seed=0)["loss"].item()
         worst_loss = max(worst_loss, abs(lg - lc))
         print(f"card vs cpu: step {step + 1} loss {lg:.6f} vs {lc:.6f}",
               flush=True)
@@ -1984,7 +1983,7 @@ def time_bottleneck(card: str):
     (with its TFLOP/s and its time as a multiple of the bound), its plain
     version, the cuDNN yardstick (the same blocks as three channels-last
     ``F.conv2d`` with the epilogues each, the route of
-    ``resnet_features(use_kernel=False)``).  Device time by CUDA-graph
+    ``cudnn_identity_runs``).  Device time by CUDA-graph
     replay (one call per graph, 2 warm-up and 5 timed replays)."""
     import torch
     from image_caption_tpu_torch.vision import bottleneck as B
@@ -2057,6 +2056,30 @@ def time_bottleneck(card: str):
 # Phases 16-18: extraction and captioning from images at full width
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def cudnn_identity_runs():
+    """ResNet's identity runs on cuDNN in this process: ``resnet_features``
+    hands each run to ``fused_stage`` (kernel #4 on the card); inside this
+    context each block of the run goes through ``resnet._bottleneck``
+    instead (three channels-last ``F.conv2d``, BN in the compute dtype),
+    the yardstick the extraction phases time #4 against and compare its
+    features with."""
+    from image_caption_tpu_torch.vision import resnet as R
+
+    def blocks_on_cudnn(x, run):
+        for block in run:
+            x = R._bottleneck(block, x, 1)
+        return x
+
+    real = R.stack_identity_blocks, R.fused_stage
+    R.stack_identity_blocks = lambda run: (run,)
+    R.fused_stage = blocks_on_cudnn
+    try:
+        yield
+    finally:
+        R.stack_identity_blocks, R.fused_stage = real
+
+
 def letterboxed_canvases(n: int, seed: int, size: int = 640):
     """``n`` uint8 ``size``-px canvases letterboxed as the loader does
     (content centred on gray 114) from random images of 300-640 px a side,
@@ -2102,19 +2125,21 @@ def drive_extract(params, cfg, card: str, device="cuda"):
     batches = padded_batches(*letterboxed_canvases(EXTRACT_IMAGES, 7),
                              EXTRACT_BATCH)
 
-    def run_pass(use_kernel):
+    def run_pass(kernel):
         outs = []
-        for (c, mt, sz), real in batches:
-            f, p, bx = extract_features_batch(
-                params, c, mt, sz, num_objects=m.num_objects,
-                max_obj=d.max_obj, use_kernel=use_kernel, device=device)
-            outs.append((f[:real], p[:real], bx[:real]))
+        with (contextlib.nullcontext() if kernel
+              else cudnn_identity_runs()):
+            for (c, mt, sz), real in batches:
+                f, p, bx = extract_features_batch(
+                    params, c, mt, sz, num_objects=m.num_objects,
+                    max_obj=d.max_obj, device=device)
+                outs.append((f[:real], p[:real], bx[:real]))
         if device != "cpu":
             torch.cuda.synchronize()
         return [torch.cat(t) for t in zip(*outs)]
 
-    for use_kernel in (True, False):           # set-up, not counted
-        run_pass(use_kernel)
+    for kernel in (True, False):               # set-up, not counted
+        run_pass(kernel)
     B.fused_stage.launches = B.fused_bottleneck.launches = 0
     results = {True: run_pass(True)}
     launches = {"fused_stage": B.fused_stage.launches,
@@ -2126,14 +2151,14 @@ def drive_extract(params, cfg, card: str, device="cuda"):
                                         "fused_bottleneck": 0}:
         raise AssertionError(f"extract launched {launches}")
     seconds = {True: [], False: []}
-    for use_kernel in (True, False, False, True, True, False):
+    for kernel in (True, False, False, True, True, False):
         t0 = time.perf_counter()
-        run_pass(use_kernel)
-        seconds[use_kernel].append(time.perf_counter() - t0)
-    for use_kernel, label in ((True, "kernel"), (False, "cuDNN")):
-        s = statistics.median(seconds[use_kernel])
+        run_pass(kernel)
+        seconds[kernel].append(time.perf_counter() - t0)
+    for kernel, label in ((True, "kernel"), (False, "cuDNN")):
+        s = statistics.median(seconds[kernel])
         print(f"extract {label} route: {EXTRACT_IMAGES} images in {s:.4f} s "
-              f"(median of 3: {', '.join(f'{x:.4f}' for x in seconds[use_kernel])}"
+              f"(median of 3: {', '.join(f'{x:.4f}' for x in seconds[kernel])}"
               f"), {EXTRACT_IMAGES / s:.2f} images/s at batch "
               f"{EXTRACT_BATCH}, bf16 [{card}]", flush=True)
 
@@ -2394,8 +2419,7 @@ def check_extract_against_cpu(params, cfg, card: str, device="cuda",
             return extract_features_roi(p, c, mt, sz, trunk_size=ROI_TRUNK,
                                         detect_size=ROI_DETECT, device=dev,
                                         **kw)
-        return extract_features_batch(p, c, mt, sz, device=dev,
-                                      use_kernel=dev != "cpu", **kw)
+        return extract_features_batch(p, c, mt, sz, device=dev, **kw)
 
     def det_view(t):               # the detector's input, as the mode has it
         return t if det_size == 640 else resize(t, det_size, det_size)
@@ -2849,18 +2873,20 @@ def drive_frcnn_extract(params, cfg, card: str, device="cuda"):
                                                    FRCNN_CANVAS),
                              EXTRACT_BATCH)
 
-    def run_pass(use_kernel):
+    def run_pass(kernel):
         outs = []
-        for parts, real in batches:
-            f, p, bx = extract_features_frcnn(
-                params, *parts, num_objects=m.num_objects,
-                use_kernel=use_kernel, device=device)
-            outs.append((f[:real], p[:real], bx[:real]))
+        with (contextlib.nullcontext() if kernel
+              else cudnn_identity_runs()):
+            for parts, real in batches:
+                f, p, bx = extract_features_frcnn(
+                    params, *parts, num_objects=m.num_objects,
+                    device=device)
+                outs.append((f[:real], p[:real], bx[:real]))
         synchronize(device)
         return [torch.cat(t) for t in zip(*outs)]
 
-    for use_kernel in (True, False):           # set-up, not counted
-        run_pass(use_kernel)
+    for kernel in (True, False):               # set-up, not counted
+        run_pass(kernel)
     B.fused_stage.launches = B.fused_bottleneck.launches = 0
     results = {True: run_pass(True)}
     launches = {"fused_stage": B.fused_stage.launches,
@@ -2872,17 +2898,17 @@ def drive_frcnn_extract(params, cfg, card: str, device="cuda"):
                                         "fused_bottleneck": 0}:
         raise AssertionError(f"frcnn extract launched {launches}")
     seconds = {True: [], False: []}
-    for use_kernel in (True, False, False, True):
+    for kernel in (True, False, False, True):
         t0 = time.perf_counter()
-        run_pass(use_kernel)
-        seconds[use_kernel].append(time.perf_counter() - t0)
+        run_pass(kernel)
+        seconds[kernel].append(time.perf_counter() - t0)
     rates = {}
-    for use_kernel, label in ((True, "kernel #4 f32"), (False, "cuDNN f32")):
-        s = statistics.median(seconds[use_kernel])
+    for kernel, label in ((True, "kernel #4 f32"), (False, "cuDNN f32")):
+        s = statistics.median(seconds[kernel])
         rates[label] = EXTRACT_IMAGES / s
         print(f"frcnn extract {label} route: {EXTRACT_IMAGES} images in "
               f"{s:.4f} s (median of 2: "
-              f"{', '.join(f'{x:.4f}' for x in seconds[use_kernel])}), "
+              f"{', '.join(f'{x:.4f}' for x in seconds[kernel])}), "
               f"{rates[label]:.2f} images/s at batch {EXTRACT_BATCH}, "
               f"float32 [{card}]", flush=True)
 
@@ -2955,7 +2981,7 @@ def check_frcnn_against_cpu(params, cfg, card: str, device="cuda"):
         params, c, mt, sz, num_objects=m.num_objects, device=device))
     fc, pc, _ = extract_features_frcnn(cpu_params, c, mt, sz,
                                        num_objects=m.num_objects,
-                                       use_kernel=False, device="cpu")
+                                       device="cpu")
     st = {}
     for dev, p in ((device, params.frcnn), ("cpu", cpu_params.frcnn)):
         mean = torch.from_numpy(IMAGENET_MEAN).to(dev)
@@ -3530,8 +3556,8 @@ def caption_ties(model, cfg, split, want, got, beam, label: str):
         p = split.positions[i:i + 1]
         caps = torch.tensor([tokens(want[i]), tokens(got[i])])
         lp = torch.log_softmax(model.logits(
-            np.repeat(f, 2, 0), np.repeat(p, 2, 0), caps,
-            use_kernel=True).float(), -1).cpu()
+            np.repeat(f, 2, 0), np.repeat(p, 2, 0), caps).float(),
+            -1).cpu()
         if beam is None:
             a, b = want[i].split(), got[i].split()
             k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),

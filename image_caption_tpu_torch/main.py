@@ -149,14 +149,17 @@ def cmd_demo(args) -> None:
     detections and, for a greedy decode, one attention overlay per word
     under ``./demo/<stem>/<image_model>``; a detection's class there is the
     argmax of its position row's one-hot (YOLOv5's 80 classes, or Faster
-    R-CNN's 91 less the background).  The extraction runs kernel #4 and
-    the decode's encoder kernel #1."""
+    R-CNN's 91 less the background).  It decodes through
+    ``serve._decode`` (the ``mla_moe`` captioner greedily only), except
+    for the greedy overlay, which needs ``greedy_decode``'s
+    cross-attention.  The extraction runs kernel #4 and the decode's
+    encoder kernel #1."""
     import numpy as np
     import torch
     from .data.vocab import decode_captions, invert_vocab
-    from .models.decoding import (beam_score_mode, beam_search,
-                                  greedy_decode, lm_greedy_decode)
+    from .models.decoding import greedy_decode
     from .models.lm import LMCaptioner
+    from .serve import _decode
     from .utils.device import resolve_device
     from .utils.io import load_pickle
     from .vision.pipeline import extract_single_image
@@ -174,21 +177,15 @@ def cmd_demo(args) -> None:
 
     feats_b = torch.from_numpy(feats[None]).to(device)
     poss_b = torch.from_numpy(poss[None]).to(device)
-    if isinstance(model, LMCaptioner):
-        # greedy only, and no cross-attention to overlay
-        tokens = lm_greedy_decode(model, feats_b, poss_b, device=device)
-        attention = None
-    elif args.beam_size and args.beam_size > 1:
-        tokens = beam_search(model, feats_b, poss_b,
-                             beam_size=args.beam_size,
-                             score_mode=beam_score_mode(cfg.caption_model),
-                             use_kernel=True, device=device)
-        attention = None
-    else:
+    greedy = not args.beam_size or args.beam_size <= 1
+    attention = None
+    if args.save_img and greedy and not isinstance(model, LMCaptioner):
+        # the overlay needs the greedy decode's cross-attention
         tokens, attention = greedy_decode(model, feats_b, poss_b,
-                                          use_kernel=True,
                                           return_attention=True,
                                           device=device)
+    else:
+        tokens = _decode(model, cfg, feats_b, poss_b, args.beam_size, device)
     caption = decode_captions(tokens.cpu().numpy(), idx_to_word)[0]
 
     if args.save_img:

@@ -87,8 +87,7 @@ class Encoder(nn.Module):
     def forward(self, object_features: torch.Tensor,
                 position_features: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True,
-                use_kernel: bool = False, need_weights: bool = False,
+                deterministic: bool = True, need_weights: bool = False,
                 sequence: Optional[SequenceShard] = None):
         """Returns (output [B, S, D], per-block attention weights or Nones).
         With ``sequence`` the inputs and the output are this rank's block
@@ -125,7 +124,7 @@ class Encoder(nn.Module):
             out, _ = self.image_encoder(
                 out, non_pad_mask=non_pad, attention_mask=pair_mask,
                 generator=gens[0], deterministic=deterministic,
-                use_kernel=use_kernel, need_weights=False,
+                need_weights=False,
                 slots=None if sequence is None else sequence.part(0))
             d = out.shape[-1]
             output = out[:, 1, :].reshape(b, s, d) + \
@@ -165,7 +164,6 @@ class Encoder(nn.Module):
             output, attn = block(output, **masks, **shard,
                                  generator=gens[1 + i],
                                  deterministic=deterministic,
-                                 use_kernel=use_kernel,
                                  need_weights=need_weights)
             attentions.append(attn)
         return output, attentions
@@ -231,8 +229,7 @@ class Decoder(nn.Module):
                 encode_output: torch.Tensor, *,
                 context_attention_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True,
-                use_kernel: bool = False, need_weights: bool = False):
+                deterministic: bool = True, need_weights: bool = False):
         """caption_vector [B, T] int -> ([B, T, D], self_attn, cross_attn)
         (model.py:419-459); the weights are the last block's."""
         cfg = self.cfg
@@ -251,7 +248,7 @@ class Decoder(nn.Module):
                 self_attention_mask=self_mask,
                 context_attention_mask=context_attention_mask,
                 generator=gens[i], deterministic=deterministic,
-                use_kernel=use_kernel, need_weights=need_weights)
+                need_weights=need_weights)
         if cfg.move_first_image_feature:
             x = self.move_first_image_feature(
                 x, encode_output, generator=gens[-1],
@@ -291,8 +288,7 @@ class Captioner(nn.Module):
 
     def forward(self, object_features, position_features, target_caption,
                 *, generator: Optional[torch.Generator] = None,
-                deterministic: bool = True,
-                use_kernel: bool = False) -> torch.Tensor:
+                deterministic: bool = True) -> torch.Tensor:
         """Teacher-forced forward: f32 logits over ``target[:, :-1]``
         (model.py:79-93), [B, T-1, V] (V/k, this rank's slice of the
         vocabulary, under tensor parallelism), differentiable.  Dropout
@@ -316,22 +312,21 @@ class Captioner(nn.Module):
                                         position_features.to(dtype),
                                         generator=enc_gen,
                                         deterministic=deterministic,
-                                        use_kernel=use_kernel, sequence=sp)
+                                        sequence=sp)
         if sp is not None:
             encode_output = sp.gather(encode_output)
         decode_output, _, _ = self.decoder(
             input_caption, encode_output,
             context_attention_mask=context_mask, generator=dec_gen,
-            deterministic=deterministic, use_kernel=use_kernel)
+            deterministic=deterministic)
         return self.classifer(decode_output.float())
 
     @torch.no_grad()
-    def logits(self, object_features, position_features, target_caption, *,
-               use_kernel: bool = False) -> torch.Tensor:
+    def logits(self, object_features, position_features,
+               target_caption) -> torch.Tensor:
         """``forward`` without dropout or gradient, for serving."""
         return self.forward(object_features, position_features,
-                            target_caption, deterministic=True,
-                            use_kernel=use_kernel)
+                            target_caption, deterministic=True)
 
 
 def cross_entropy_ignore_pad(logits: torch.Tensor, targets: torch.Tensor,
@@ -365,7 +360,7 @@ def focal_loss_from_ce(ce_mean: torch.Tensor,
 
 def xe_loss(model: Captioner, object_features, position_features,
             target_caption, *, generator: Optional[torch.Generator] = None,
-            deterministic: bool = True, use_kernel: bool = False,
+            deterministic: bool = True,
             mesh=None) -> Dict[str, torch.Tensor]:
     """XE or focal training loss (model.py:79-98), the counterpart of the
     JAX package's ``captioner_xe_loss``: the mean CE over non-pad targets,
@@ -376,8 +371,7 @@ def xe_loss(model: Captioner, object_features, position_features,
     go through the vocabulary-parallel cross entropy."""
     cfg = model.cfg
     logits = model(object_features, position_features, target_caption,
-                   generator=generator, deterministic=deterministic,
-                   use_kernel=use_kernel)
+                   generator=generator, deterministic=deterministic)
     targets = torch.as_tensor(target_caption, device=model.device)[:, 1:]
     ce = cross_entropy_ignore_pad(logits, targets, cfg.pad_idx, mesh,
                                   model.tp)

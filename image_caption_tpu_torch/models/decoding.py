@@ -191,10 +191,8 @@ def decoder_step(model: Captioner, token: torch.Tensor, pos: int,
     return logits, cross_attn[:, :, 0, :]
 
 
-def _encode(model: Captioner, object_features, position_features,
-            use_kernel: bool):
-    encode_output, _ = model.encoder(object_features, position_features,
-                                     use_kernel=use_kernel)
+def _encode(model: Captioner, object_features, position_features):
+    encode_output, _ = model.encoder(object_features, position_features)
     cross_kv = precompute_cross_kv(model, encode_output)
     cross_neg = (position_features == 0).all(dim=-1)[:, None, :]
     return encode_output, cross_kv, cross_neg
@@ -206,7 +204,7 @@ def _encode(model: Captioner, object_features, position_features,
 
 @torch.no_grad()
 def greedy_decode(model: Captioner, object_features, position_features, *,
-                  use_kernel: bool = False, return_attention: bool = False,
+                  return_attention: bool = False,
                   device: DeviceLike = None):
     """Replaces model.py:101-132.  Returns (tokens [B, max_length+1] int64,
     attention [steps, B, S] or None), on the model's device.
@@ -217,8 +215,7 @@ def greedy_decode(model: Captioner, object_features, position_features, *,
     with annotate("decode.greedy", device=True):
         feats, poss = _inputs(model, object_features, position_features,
                               device)
-        encode_output, cross_kv, cross_neg = _encode(model, feats, poss,
-                                                     use_kernel)
+        encode_output, cross_kv, cross_neg = _encode(model, feats, poss)
         b = encode_output.shape[0]
         tokens = torch.zeros((b, cfg.max_length + 1), dtype=torch.long,
                              device=feats.device)
@@ -353,7 +350,7 @@ def _reindex_small(x: torch.Tensor, beam_idx: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def beam_search(model: Captioner, object_features, position_features, *,
                 beam_size: int, score_mode: str = "prob",
-                use_kernel: bool = False, stop_at_end: bool = False,
+                stop_at_end: bool = False,
                 device: DeviceLike = None) -> torch.Tensor:
     """Replaces model.py:135-200 / model_RL.py:134-199.
 
@@ -366,8 +363,7 @@ def beam_search(model: Captioner, object_features, position_features, *,
         raise ValueError(f"unknown score_mode {score_mode!r}")
     cfg = model.cfg
     feats, poss = _inputs(model, object_features, position_features, device)
-    encode_output, cross_kv_b, cross_neg_b = _encode(model, feats, poss,
-                                                     use_kernel)
+    encode_output, cross_kv_b, cross_neg_b = _encode(model, feats, poss)
     b = encode_output.shape[0]
     k = beam_size
     t_total = cfg.max_length - 1

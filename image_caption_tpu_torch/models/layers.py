@@ -159,8 +159,8 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, q_in, k_in, v_in, mask, *,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True, use_kernel: bool = False,
-                need_weights: bool = True, slots: Optional[Part] = None
+                deterministic: bool = True, need_weights: bool = True,
+                slots: Optional[Part] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``slots``: the queries' ``Part`` of the [B, Lq, D] activations
         (dim 0 where each row of the batch is folded with its slots, as in
@@ -178,7 +178,6 @@ class MultiHeadAttention(nn.Module):
                                   dropout_rate=self.attention_dropout,
                                   generator=attn_gen,
                                   deterministic=deterministic,
-                                  use_kernel=use_kernel,
                                   need_weights=need_weights,
                                   dropout_parts=parts)
         out = self.joint_linear(merge_heads(out))
@@ -230,8 +229,7 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x, *, non_pad_mask=None, attention_mask=None,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True,
-                use_kernel: bool = False, need_weights: bool = True,
+                deterministic: bool = True, need_weights: bool = True,
                 kv: Optional[torch.Tensor] = None,
                 slots: Optional[Part] = None):
         """``kv``: the keys' and values' input (``x`` when None);
@@ -240,8 +238,8 @@ class EncoderBlock(nn.Module):
         kv = x if kv is None else kv
         out, attn = self.multihead_attention(
             x, kv, kv, attention_mask, generator=g1,
-            deterministic=deterministic, use_kernel=use_kernel,
-            need_weights=need_weights, slots=slots)
+            deterministic=deterministic, need_weights=need_weights,
+            slots=slots)
         out = self.feed_forward(out, generator=g2,
                                 deterministic=deterministic, slots=slots)
         if non_pad_mask is not None:
@@ -272,17 +270,15 @@ class DecoderBlock(nn.Module):
     def forward(self, x, encode_output, *, non_pad_mask=None,
                 self_attention_mask=None, context_attention_mask=None,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True,
-                use_kernel: bool = False, need_weights: bool = True):
+                deterministic: bool = True, need_weights: bool = True):
         g1, g2, g3 = split(generator, 3)
         out, self_attn = self.self_attention(
             x, x, x, self_attention_mask, generator=g1,
-            deterministic=deterministic, use_kernel=use_kernel,
-            need_weights=need_weights)
+            deterministic=deterministic, need_weights=need_weights)
         out, cross_attn = self.encode_attention(
             out, encode_output, encode_output, context_attention_mask,
             generator=g2, deterministic=deterministic,
-            use_kernel=use_kernel, need_weights=need_weights)
+            need_weights=need_weights)
         out = self.feed_forward(out, generator=g3,
                                 deterministic=deterministic)
         if non_pad_mask is not None:

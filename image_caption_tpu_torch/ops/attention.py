@@ -289,19 +289,18 @@ def sdp_attention(q, k, v, mask, temperature, *,
                   dropout_rate: float = 0.0,
                   generator: Optional[torch.Generator] = None,
                   deterministic: bool = True,
-                  use_kernel: bool = False,
                   need_weights: bool = True,
                   dropout_parts: Sequence[Part] = ()
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Dispatch between the fused kernel and the plain path.
+    """Dispatch between the fused route and the plain path.
 
-    ``use_kernel`` is the JAX package's ``use_pallas``, renamed: the fused
-    kernel runs when the caller asks for it, needs no weights and runs no
-    dropout; otherwise the plain path runs.  On a CPU tensor the kernel's
-    wrapper itself takes the plain path."""
+    A call that wants no weights and runs no dropout takes
+    ``fused_attention``, whose wrapper picks by device: kernels #1 and #2
+    on a CUDA tensor, the plain versions on a CPU one.  Any other call
+    takes ``attention_reference``."""
     dropout_active = (not deterministic and dropout_rate > 0.0
                       and generator is not None)
-    if use_kernel and not need_weights and not dropout_active:
+    if not need_weights and not dropout_active:
         b, lq = q.shape[0], q.shape[2]
         lk = k.shape[2]
         mask_i8 = (torch.zeros((b, lq, lk), dtype=torch.int8,

@@ -150,26 +150,22 @@ def rl_loss_from_logits(logits: torch.Tensor, captions: torch.Tensor, cfg,
                   "structure_loss": st_loss, "reward": reward}
 
 
-def rl_forward(model: Captioner, batch, generator, deterministic: bool,
-               use_kernel: bool):
+def rl_forward(model: Captioner, batch, generator, deterministic: bool):
     """Split the step's key as the JAX package does (dropout, sample) and
     run the teacher-forced forward on the dropout half; a sharded model's
     logits come back whole, gathered over its model group."""
     drop_gen, sample_gen = split(generator, 2)
-    logits = model(*batch, generator=drop_gen, deterministic=deterministic,
-                   use_kernel=use_kernel)
+    logits = model(*batch, generator=drop_gen, deterministic=deterministic)
     return gather_vocab(logits, model.tp), sample_gen
 
 
 @torch.no_grad()
 def rl_sample_sequence(model: Captioner, cfg, batch, *,
                        generator: Optional[torch.Generator] = None,
-                       deterministic: bool = True,
-                       use_kernel: bool = True) -> torch.Tensor:
+                       deterministic: bool = True) -> torch.Tensor:
     """The sampled sequences [B, N, T] alone.  With the same generator the
     sample equals the one ``rl_composite_loss`` draws."""
-    logits, sample_gen = rl_forward(model, batch, generator,
-                                    deterministic, use_kernel)
+    logits, sample_gen = rl_forward(model, batch, generator, deterministic)
     return sample_from_logits(logits, sample_gen, cfg.rl.sample_mode,
                               cfg.rl.num_samples)[0]
 
@@ -178,15 +174,13 @@ def rl_composite_loss(model: Captioner, cfg, batch, *,
                       rewards: torch.Tensor, self_cider: torch.Tensor,
                       sample_seq: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      deterministic: bool = True,
-                      use_kernel: bool = True
+                      deterministic: bool = True
                       ) -> Tuple[torch.Tensor, Metrics]:
     """The full RL loss (loss.py:52-76) of ``model`` on ``batch``
     (features, positions, captions), differentiable: the forward under
     ``generator``'s dropout half, then ``rl_loss_from_logits`` with its
     sample half.  Returns (loss, the four WRITE_LOG metrics)."""
-    logits, sample_gen = rl_forward(model, batch, generator,
-                                    deterministic, use_kernel)
+    logits, sample_gen = rl_forward(model, batch, generator, deterministic)
     captions = torch.as_tensor(batch[2], device=model.device)
     return rl_loss_from_logits(logits, captions, cfg, rewards=rewards,
                                self_cider=self_cider, sample_seq=sample_seq,

@@ -12,10 +12,10 @@ row's gradient zeroed.  The JAX package runs two forwards with the same
 params and key, whose samples are bit-identical (its ``rl/loss.py``), so
 the update is the same.
 
-The steps ask for the fused attention kernels (``use_kernel=True``), as
-``train/step.py`` does: at ``model.attention_dropout=0.0``, and in the
-deterministic eval, kernels #1 and #2 carry attention (13 launches of each
-a train step, 13 of #1 an eval); at the presets' 0.1 the plain path runs.
+Attention takes ``sdp_attention``'s route, as in ``train/step.py``: at
+``model.attention_dropout=0.0``, and in the deterministic eval, kernels #1
+and #2 carry it on the card (13 launches of each a train step, 13 of #1
+an eval); at the presets' 0.1 the plain path runs.
 
 With a process-group ``mesh`` each rank samples, scores and updates its
 data index's rows of the global batch; the loss is normalised over the
@@ -76,14 +76,14 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
     return out.copy_(x, non_blocking=True)
 
 
-def rl_sample(state: TrainState, batch: Batch, cfg, *, seed: int,
-              use_kernel: bool = True) -> RLSample:
+def rl_sample(state: TrainState, batch: Batch, cfg, *,
+              seed: int) -> RLSample:
     """The forward of update ``state.step`` with gradient and dropout, and
     its sample; the copy to the host is started, not waited for."""
     model = state.model
     logits, sample_gen = rl_forward(
         model, batch, step_generator(seed, state.step, model.device),
-        False, use_kernel)
+        False)
     seq, _ = sample_from_logits(logits.detach(), sample_gen,
                                 cfg.rl.sample_mode, cfg.rl.num_samples)
     host_seq, host_caps = _to_host(seq), _to_host(batch[2])
@@ -110,22 +110,21 @@ def rl_update(state: TrainState, sample: RLSample, rewards: np.ndarray,
 
 
 def rl_train_step(state: TrainState, batch: Batch, cfg, *, seed: int,
-                  score: Scorer, use_kernel: bool = True,
-                  mesh=None) -> Metrics:
+                  score: Scorer, mesh=None) -> Metrics:
     """One serial SCST update of ``state`` in place (core/models.py:
     184-195): sample, score on the host with ``score``, update."""
-    sample = rl_sample(state, batch, cfg, seed=seed, use_kernel=use_kernel)
+    sample = rl_sample(state, batch, cfg, seed=seed)
     rewards, self_cider = score(*sample.host())
     return rl_update(state, sample, rewards, self_cider, cfg, mesh)
 
 
 @torch.no_grad()
 def rl_eval_step(model: Captioner, cfg, batch: Batch, *, score: Scorer,
-                 use_kernel: bool = True, mesh=None) -> Metrics:
+                 mesh=None) -> Metrics:
     """The deterministic RL metrics (no dropout; a categorical sample
     draws from the fixed seed-0 generator, with the data index folded in
     past data index 0)."""
-    logits, _ = rl_forward(model, batch, None, True, use_kernel)
+    logits, _ = rl_forward(model, batch, None, True)
     gen = (generator(fold_in(0, mesh.offset), logits.device)
            if mesh is not None and mesh.offset else None)
     seq, _ = sample_from_logits(logits, gen, cfg.rl.sample_mode,

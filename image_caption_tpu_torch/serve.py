@@ -54,27 +54,25 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 
 def _decode(model: Captioner, cfg: Config, feats, poss,
-            beam_size: Optional[int], use_kernel: bool,
-            device: DeviceLike) -> torch.Tensor:
+            beam_size: Optional[int], device: DeviceLike) -> torch.Tensor:
     if isinstance(model, LMCaptioner):
         if beam_size is not None and beam_size > 1:
             raise ValueError("the mla_moe captioner decodes greedily; beam "
                              "search over its latent cache is not built")
         return lm_greedy_decode(model, feats, poss, device=device)
     if beam_size is None or beam_size <= 1:
-        return greedy_decode(model, feats, poss, use_kernel=use_kernel,
-                             device=device)[0]
+        return greedy_decode(model, feats, poss, device=device)[0]
     return beam_search(model, feats, poss, beam_size=beam_size,
                        score_mode=beam_score_mode(cfg.caption_model),
-                       use_kernel=use_kernel, device=device)
+                       device=device)
 
 
 def _decode_sharded(models: List[Captioner], place, cfg: Config, feats,
-                    poss, beam_size: Optional[int], use_kernel: bool,
+                    poss, beam_size: Optional[int],
                     mesh: Mesh) -> np.ndarray:
     """Each device's rows of a batch through its replica; every process's
     tokens gathered, in row order, as host int64 [B, T]."""
-    blocks = [_decode(m, cfg, f, p, beam_size, use_kernel, m.device)
+    blocks = [_decode(m, cfg, f, p, beam_size, m.device)
               for m, f, p in zip(models, place(feats), place(poss))]
     return gather_rows(mesh, np.concatenate([b.cpu().numpy()
                                              for b in blocks]))
@@ -104,11 +102,11 @@ def decode_split(model: Captioner, cfg: Config, split: CocoSplit,
         # a batch's span runs from its features on the host to its captions
         with annotate("serve.decode_batch"):
             if place is None:
-                tokens = _decode(model, cfg, feats, poss, beam_size, True,
+                tokens = _decode(model, cfg, feats, poss, beam_size,
                                  device).cpu().numpy()
             else:
                 tokens = _decode_sharded(models, place, cfg, feats, poss,
-                                         beam_size, True, mesh)
+                                         beam_size, mesh)
             strs = decode_captions(tokens[:real], idx_to_word)
         for i, s in zip(idxs[:real], strs):
             out[int(i)] = s
@@ -131,7 +129,7 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
                    beam_size: Optional[int] = None, batch_size: int = 32,
                    max_obj: Optional[int] = None,
                    feature_mode: str = "crop", num_workers: int = 8,
-                   use_kernel: bool = True, compute_dtype=torch.bfloat16,
+                   compute_dtype=torch.bfloat16,
                    skip_errors: bool = False,
                    on_batch: Optional[Callable[[int, List[Optional[str]]],
                                                None]] = None,
@@ -142,14 +140,14 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
     come back aligned with ``image_paths``.
 
     ``beam_size`` None or 1 decodes greedily, above that beam search with
-    the score mode of ``cfg.caption_model``.  ``use_kernel`` sends both the
-    extraction (kernel #4) and the encoder (kernel #1) through the CUDA
-    kernels on the card.  ``compute_dtype`` is YOLOv5's extraction's
-    (bfloat16, as in the JAX package); Faster R-CNN's runs in float32.
-    ``skip_errors=True``: an unreadable image gets ``None`` instead of
-    failing the run.  ``on_batch(start, captions)``
-    streams each batch out; ``progress(done, n)`` reports.  Runs on CUDA
-    unless ``device`` says otherwise; the model must lie there.
+    the score mode of ``cfg.caption_model``.  On the card the extraction
+    runs kernel #4 and the encoder kernel #1.  ``compute_dtype`` is
+    YOLOv5's extraction's (bfloat16, as in the JAX package); Faster
+    R-CNN's runs in float32.  ``skip_errors=True``: an unreadable image
+    gets ``None`` instead of failing the run.  ``on_batch(start,
+    captions)`` streams each batch out; ``progress(done, n)`` reports.
+    Runs on CUDA unless ``device`` says otherwise; the model must lie
+    there.
 
     ``mesh``: a single-process mesh of local devices.  On the YOLOv5 path
     with a ``batch_size`` its data axis divides, extraction
@@ -176,8 +174,7 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
         batch_size=batch_size, num_workers=num_workers,
         image_model=cfg.data.image_model,
         rect_letterbox=cfg.data.rect_letterbox, feature_mode=feature_mode,
-        skip_errors=skip_errors, use_kernel=use_kernel,
-        compute_dtype=compute_dtype, device=device,
+        skip_errors=skip_errors, compute_dtype=compute_dtype, device=device,
         mesh=mesh if place is not None else None)
     batches = iter(stream)
     while True:
@@ -192,13 +189,12 @@ def caption_images(cfg: Config, image_paths: Sequence[str],
             # FRCNN)
             feats, poss = feats.float(), poss[:, :, :m.dim_positions].float()
             if place is None:
-                tokens = _decode(model, cfg, feats, poss, beam_size,
-                                 use_kernel, device)
+                tokens = _decode(model, cfg, feats, poss, beam_size, device)
                 with annotate("serve.tokens_to_host"):
                     tokens = tokens.cpu().numpy()
             else:
                 tokens = _decode_sharded(models, place, cfg, feats, poss,
-                                         beam_size, use_kernel, mesh)
+                                         beam_size, mesh)
             batch_caps: List[Optional[str]] = decode_captions(
                 tokens[:real], idx_to_word)
             for j in failed:

@@ -19,11 +19,10 @@ under sequence parallelism it runs on this rank's slots
 (``Trainer`` does), so the data indices draw different dropout masks and
 the ranks of a model or sequence group the same.
 
-The steps ask for the fused attention kernels (``use_kernel=True``, as
-``serve.decode_split`` does), and ``sdp_attention``'s dispatch rule
-decides: with attention dropout active (the presets' 0.1) the plain path
-runs; with ``model.attention_dropout=0.0``, and in ``eval_step``, the
-forward and backward kernels run, on this rank's heads under tensor
+``sdp_attention``'s dispatch rule picks each attention's route: with
+attention dropout active (the presets' 0.1) the plain path runs; with
+``model.attention_dropout=0.0``, and in ``eval_step``, the forward and
+backward kernels run on the card, on this rank's heads under tensor
 parallelism.  The JAX step leaves ``use_pallas`` off
 (``train/step.py:27``); the function computed is the same, only the route
 differs.
@@ -96,7 +95,6 @@ def apply_update(state: TrainState, loss: torch.Tensor, mesh=None) -> None:
 
 
 def train_step(state: TrainState, batch: Batch, *, seed: int,
-               use_kernel: bool = True,
                mesh=None) -> Dict[str, torch.Tensor]:
     """One XE/focal update of ``state`` in place (core/models.py:115-126).
     Returns the loss before the update, as a tensor on the device (reading
@@ -106,18 +104,17 @@ def train_step(state: TrainState, batch: Batch, *, seed: int,
     gen = step_generator(seed, state.step, model.device)
     with annotate("train.forward", device=True):
         loss = xe_loss(model, *batch, generator=gen, deterministic=False,
-                       use_kernel=use_kernel, mesh=mesh)["loss"]
+                       mesh=mesh)["loss"]
     apply_update(state, loss, mesh)
     return {"loss": loss.detach()}
 
 
 def train_steps(state: TrainState, batches: Sequence[Batch], *, seed: int,
-                use_kernel: bool = True,
                 mesh=None) -> Dict[str, torch.Tensor]:
     """K updates, one per batch, equal to K ``train_step`` calls; the
     losses come back stacked [K]."""
-    losses = [train_step(state, b, seed=seed, use_kernel=use_kernel,
-                         mesh=mesh)["loss"] for b in batches]
+    losses = [train_step(state, b, seed=seed, mesh=mesh)["loss"]
+              for b in batches]
     return {"loss": torch.stack(losses)}
 
 
@@ -128,9 +125,8 @@ def unstack(stacked: Batch) -> List[Batch]:
 
 
 @torch.no_grad()
-def eval_step(model: Captioner, batch: Batch, *, use_kernel: bool = True,
+def eval_step(model: Captioner, batch: Batch, *,
               mesh=None) -> Dict[str, torch.Tensor]:
     """Deterministic loss (core/models.py:128-135), over every data index's
     rows with a process-group ``mesh``."""
-    return xe_loss(model, *batch, deterministic=True, use_kernel=use_kernel,
-                   mesh=mesh)
+    return xe_loss(model, *batch, deterministic=True, mesh=mesh)

@@ -119,9 +119,8 @@ def stream_extracted_batches(
         num_workers: int = 8, image_model: str = "YOLOv5",
         rect_letterbox: bool = False, feature_mode: str = "crop",
         roi_trunk_size: int = 448, roi_detect_size: Optional[int] = 320,
-        skip_errors: bool = False, use_kernel: bool = True,
-        compute_dtype=torch.bfloat16, device: DeviceLike = None,
-        mesh=None
+        skip_errors: bool = False, compute_dtype=torch.bfloat16,
+        device: DeviceLike = None, mesh=None
 ) -> Iterator[Tuple[int, int, List[int], torch.Tensor, torch.Tensor]]:
     """Yield ``(start, real, failed, feats, poss)`` per ``batch_size``
     chunk of ``image_paths``: ``real`` rows of the padded batch are images,
@@ -130,7 +129,7 @@ def stream_extracted_batches(
     [B, S, 2048] / ``poss`` [B, S, 84] (95 for Faster R-CNN) stay on
     ``device`` (the card unless told otherwise) without a wait.
     ``feature_mode`` "crop" encodes every box (ResNet through kernel #4
-    with ``use_kernel``), "roi" pools a shared trunk at ``roi_trunk_size``
+    on the card), "roi" pools a shared trunk at ``roi_trunk_size``
     and detects at ``roi_detect_size``.  ``image_model="FasterRCNN"``
     loads square 800-px canvases (``rect_letterbox`` does not apply) and
     extracts with ``extract_features_frcnn`` in float32 (``max_obj`` and
@@ -181,14 +180,11 @@ def stream_extracted_batches(
         if frcnn:
             return extract_features_frcnn(
                 extractor_params, canvases, metas, sizes,
-                num_objects=num_objects, canvas=canvas_size,
-                use_kernel=use_kernel, device=device)
+                num_objects=num_objects, canvas=canvas_size, device=device)
         kw = dict(num_objects=num_objects, max_obj=max_obj,
                   compute_dtype=compute_dtype)
         if feature_mode == "roi":
             kw.update(trunk_size=roi_trunk_size, detect_size=roi_detect_size)
-        else:
-            kw.update(use_kernel=use_kernel)
         if mesh is not None:
             return extract_features_sharded(
                 mesh, extractor_params, canvases, metas, sizes,
@@ -288,9 +284,8 @@ def _params_digest(params) -> Optional[str]:
 
 
 # kwargs that do not change the features: the weights enter as a digest,
-# and the batch size, device and ResNet route compute the same function
-_FINGERPRINT_EXEMPT = ("extractor_params", "batch_size", "device",
-                       "use_kernel", "mesh")
+# and the batch size and device compute the same function
+_FINGERPRINT_EXEMPT = ("extractor_params", "batch_size", "device", "mesh")
 
 
 def extraction_fingerprint(image_paths: Sequence[str], kwargs: Dict) -> Dict:
@@ -576,8 +571,7 @@ def run_etl(cfg: Config, *, coco_root: str,
             roi_trunk_size=d.roi_trunk_size,
             roi_detect_size=d.roi_detect_size,
             num_position_dims=cfg.model.dim_positions,
-            compute_dtype=torch.bfloat16, use_kernel=True, device=device,
-            mesh=mesh)
+            compute_dtype=torch.bfloat16, device=device, mesh=mesh)
         fp = extraction_fingerprint(list(file_names), ex_kwargs)
 
         feats_path = os.path.join(out_dir,

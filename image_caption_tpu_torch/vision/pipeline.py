@@ -25,8 +25,8 @@ in float32, with the reference's rows for that model:
 [y1/H, y2/H, x1/W, x2/W] + the 91-wide score one-hot, no halving.
 
 Everything runs on one device, the card unless ``device`` says otherwise;
-the parameters must lie there.  ``use_kernel=True`` sends ResNet-101's
-identity runs through the fused bottleneck kernel (kernel #4).
+the parameters must lie there.  ResNet-101's identity runs go through
+``fused_stage``: kernel #4 on the card, its plain version on the CPU.
 ``extract_features_sharded`` splits a batch over the local devices of a
 mesh, with a replica of the parameters on each.
 """
@@ -307,7 +307,15 @@ def extract_features_batch(params: ExtractorParams, canvases, metas,
     Returns (features [B, S', 2048] f32, positions [B, S', 4 + C] f32,
     boxes [B, K, 4] original-pixel xyxy) with S' = num_objects + 1, on
     ``device``.  ``compute_dtype`` defaults to bfloat16 as in the JAX
-    package; float32 is for parity studies."""
+    package; float32 is for parity studies.  ``use_kernel`` stays for the
+    benchmark's extraction cell and its reference test, which pass
+    ``use_kernel=True``; the device picks the ResNet route, so ``False``
+    raises."""
+    if not use_kernel:
+        raise ValueError("extract_features_batch takes use_kernel=True "
+                         "only: the device picks the ResNet route, kernel "
+                         "#4 on CUDA tensors and its plain version on CPU "
+                         "tensors")
     with annotate("extract.batch", device=True):
         canvases, metas, orig_sizes = _on_device(params, device, canvases,
                                                  metas, orig_sizes)
@@ -334,8 +342,7 @@ def extract_features_batch(params: ExtractorParams, canvases, metas,
             flat = crops.reshape(b * m, crop_size, crop_size, 3)
         with annotate("extract.resnet", device=True):
             feats_sel = resnet_features(params.resnet, flat,
-                                        compute_dtype=compute_dtype,
-                                        use_kernel=use_kernel
+                                        compute_dtype=compute_dtype
                                         ).reshape(b, m, -1)
         return _assemble_outputs(sel, feats_sel, num_objects=num_objects,
                                  max_obj=max_obj, num_classes=num_classes)
@@ -469,7 +476,6 @@ def _cudnn_f32():
 def extract_features_frcnn(params: FrcnnExtractorParams, canvases, metas,
                            orig_sizes, *, num_objects: int = 36,
                            canvas: int = FRCNN_CANVAS, crop_size: int = 224,
-                           use_kernel: bool = True,
                            device: DeviceLike = None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
@@ -485,8 +491,8 @@ def extract_features_frcnn(params: FrcnnExtractorParams, canvases, metas,
     ``device``: slot 0 is the letterboxed content region with the row
     [0, 0, 1, 1] + zeros; slots 1.. are the detections by score, NOT
     halved, rows [y1/H, y2/H, x1/W, x2/W] + the score at (label - 1) of 91;
-    invalid slots are zero.  ``use_kernel`` sends ResNet-101's identity
-    runs through kernel #4 (its float32 route)."""
+    invalid slots are zero.  ResNet-101's identity runs take kernel #4's
+    float32 route on the card."""
     with annotate("extract.batch", device=True):
         canvases, metas, orig_sizes = _on_device(params, device, canvases,
                                                  metas, orig_sizes)
@@ -514,8 +520,8 @@ def extract_features_frcnn(params: FrcnnExtractorParams, canvases, metas,
                 crops = (crops / 255.0 - mean) / std
             with annotate("extract.resnet", device=True):
                 feats = resnet_features(
-                    params.resnet, crops.reshape(-1, crop_size, crop_size, 3),
-                    use_kernel=use_kernel).reshape(b, num_objects + 1, -1)
+                    params.resnet, crops.reshape(-1, crop_size, crop_size, 3)
+                ).reshape(b, num_objects + 1, -1)
 
         slot_valid = torch.cat([torch.ones((b, 1), dtype=torch.bool,
                                            device=canvases.device),

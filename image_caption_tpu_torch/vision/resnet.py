@@ -10,13 +10,13 @@ tensors, conv kernels in torch OIHW layout.  Activations run NCHW in
 fused bottleneck kernel reads NHWC bytes without a transpose.
 
 Identity bottlenecks (stride 1, no downsample) come in runs inside each
-stage (2, 3, 22 and 2 for ResNet-101).  With ``use_kernel=True`` every run
-goes through ``vision/bottleneck.fused_stage``: kernel #4 on CUDA tensors,
-one launch per run.  With ``use_kernel=False``, and for the stem, the
-strided and the downsample blocks, each conv is ``F.conv2d`` with BN in
-the compute dtype, as the JAX package's XLA route computes it.
+stage (2, 3, 22 and 2 for ResNet-101).  ``resnet_features`` hands every
+run to ``vision/bottleneck.fused_stage``, which picks by device: kernel #4
+on CUDA tensors, one launch per run, its plain version on CPU ones.  The
+stem, the strided and the downsample blocks, and every block of
 ``resnet_feature_maps`` (the stage outputs the ``roi`` feature mode pools
-from) runs that route only.
+from), run each conv as ``F.conv2d`` with BN in the compute dtype, as the
+JAX package's XLA route computes it.
 """
 
 from __future__ import annotations
@@ -111,8 +111,7 @@ def _bottleneck(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 def resnet_features(params: Params, images: torch.Tensor, *,
-                    compute_dtype=torch.float32,
-                    use_kernel: bool = False) -> torch.Tensor:
+                    compute_dtype=torch.float32) -> torch.Tensor:
     """[N, H, W, 3] ImageNet-normalized images -> [N, 2048] float32
     features (stem, 4 stages, global average pool, as torchvision's
     ``children()[:9]``).  The mean is taken in float32 and rounded to the
@@ -126,7 +125,7 @@ def resnet_features(params: Params, images: torch.Tensor, *,
         run = []                  # consecutive identity blocks
         for b, block in enumerate(blocks):
             stride = 2 if (b == 0 and i > 0) else 1
-            if use_kernel and stride == 1 and "downsample" not in block:
+            if stride == 1 and "downsample" not in block:
                 run.append(block)
                 continue
             if run:

@@ -141,22 +141,57 @@ def test_masked_softmax_matches_jax():
         np.asarray(JA.masked_softmax(jnp.asarray(s))), rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_sdp_attention_weights_only_when_asked(use_kernel):
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_sdp_attention_weights_only_when_asked(with_mask):
     q, k, v, mask = _setup()
+    m = _t(mask) if with_mask else None
     # a transposed (non-contiguous) q as the model's head split gives it
     qt = _t(q).transpose(2, 3).contiguous().transpose(2, 3)
     before = TA.fused_attention.launches
-    out, attn = TA.sdp_attention(qt, _t(k), _t(v), _t(mask), 2.0,
-                                 use_kernel=use_kernel, need_weights=False)
+    out, attn = TA.sdp_attention(qt, _t(k), _t(v), m, 2.0,
+                                 need_weights=False)
     assert attn is None
-    out2, attn2 = TA.sdp_attention(qt, _t(k), _t(v), _t(mask), 2.0,
-                                   use_kernel=use_kernel, need_weights=True)
+    out2, attn2 = TA.sdp_attention(qt, _t(k), _t(v), m, 2.0,
+                                   need_weights=True)
     assert attn2 is not None and attn2.shape == (2, 3, 5, 7)
     np.testing.assert_allclose(out.numpy(), out2.numpy(), rtol=1e-6,
                                atol=1e-6)
     # CPU tensors never launch the kernel
     assert TA.fused_attention.launches == before == 0
+
+
+@pytest.mark.parametrize("dropout_active", [False, True])
+@pytest.mark.parametrize("need_weights", [False, True])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_sdp_attention_takes_the_fused_route_without_weights_or_dropout(
+        with_mask, need_weights, dropout_active, monkeypatch):
+    """The dispatch rule: ``FusedAttentionFn`` (kernels #1 and #2 on the
+    card) exactly when no weights are wanted and no dropout runs;
+    ``attention_reference`` otherwise."""
+    q, k, v, mask = _setup()
+    calls = {"fused": 0, "plain": 0}
+    real_apply, real_reference = (TA.FusedAttentionFn.apply,
+                                  TA.attention_reference)
+
+    def apply(*a):
+        calls["fused"] += 1
+        return real_apply(*a)
+
+    def reference(*a, **k):
+        calls["plain"] += 1
+        return real_reference(*a, **k)
+
+    monkeypatch.setattr(TA.FusedAttentionFn, "apply", apply)
+    monkeypatch.setattr(TA, "attention_reference", reference)
+    out, attn = TA.sdp_attention(
+        _t(q), _t(k), _t(v), _t(mask) if with_mask else None, 2.0,
+        dropout_rate=0.1, generator=torch.Generator().manual_seed(0),
+        deterministic=not dropout_active, need_weights=need_weights)
+    fused = not need_weights and not dropout_active
+    # on a CPU tensor the fused route's forward is the plain version
+    assert calls == {"fused": int(fused), "plain": 1}
+    assert (attn is None) == (not need_weights)
+    assert out.shape == (2, 3, 5, 4)
 
 
 def test_dropout_matches_jax_semantics():

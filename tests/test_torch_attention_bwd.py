@@ -121,21 +121,21 @@ def test_bwd_reference_matches_autograd(shape, dtype):
 def test_sdp_attention_kernel_route_grads_match_plain(need_grad):
     q, k, v, mask, do = _setup(3, 4, 6, 9, 8, seed=2)
     grads = {}
-    for use_kernel in (True, False):
+    # without weights the fused route, with them the plain path
+    for need_weights in (False, True):
         leaves = [_t(x).requires_grad_(need_grad in (n, "all"))
                   for n, x in zip("qkv", (q, k, v))]
         # the model's head split gives transposed (non-contiguous) views
         views = [x.transpose(1, 2).contiguous().transpose(1, 2)
                  for x in leaves]
         out, attn = TA.sdp_attention(*views, _t(mask) != 0, 2.0,
-                                     use_kernel=use_kernel,
-                                     need_weights=False)
-        assert attn is None
+                                     need_weights=need_weights)
+        assert (attn is None) != need_weights
         wrt = [x for x in leaves if x.requires_grad]
         # a transposed output gradient reaches the Function non-contiguous
         g_out = _t(do).transpose(2, 3).contiguous().transpose(2, 3)
-        grads[use_kernel] = torch.autograd.grad(out, wrt, g_out)
-    for g, w in zip(grads[True], grads[False]):
+        grads[need_weights] = torch.autograd.grad(out, wrt, g_out)
+    for g, w in zip(grads[False], grads[True]):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
                                    atol=1e-6)
 

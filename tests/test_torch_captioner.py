@@ -1,5 +1,6 @@
-"""The port's captioner against the JAX package's: teacher-forced logits,
-losses and the bf16 compute path, with the JAX weights carried over."""
+"""The port's captioner against the JAX package's: teacher-forced logits
+(against both JAX attention routes), losses and the bf16 compute path,
+with the JAX weights carried over."""
 
 import jax
 import jax.numpy as jnp
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 from image_caption_tpu.models import captioner as JC
+from image_caption_tpu.ops import attention as JA
 from image_caption_tpu_torch.models import captioner as TC
 from image_caption_tpu_torch.utils.weights import state_dict_from_jax_params
 
@@ -34,18 +36,35 @@ def _cfg(name, tiny_cfg, flagship_tiny_cfg):
     return tiny_cfg if name == "tiny" else flagship_tiny_cfg
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.fixture
+def jax_pallas(monkeypatch):
+    """``use_pallas=True`` takes the JAX package's fused attention on the
+    CPU: its probe (off on a CPU backend) passed, its Pallas kernels run
+    in interpret mode."""
+    from jax.experimental import pallas as pl
+    orig = pl.pallas_call
+
+    def interpret(*args, **kw):
+        kw.setdefault("interpret", True)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(JA, "_PALLAS_OK", True)
+    monkeypatch.setattr(JA.pl, "pallas_call", interpret)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("cfg_name", ["tiny", "flagship"])
-def test_logits_match_jax(cfg_name, use_kernel, tiny_cfg, flagship_tiny_cfg):
+def test_logits_match_jax(cfg_name, use_pallas, tiny_cfg, flagship_tiny_cfg,
+                          jax_pallas):
     cfg = _cfg(cfg_name, tiny_cfg, flagship_tiny_cfg)
     params, model = port_model(cfg, seed=1)
     f, p, c = make_fake_batch(cfg, batch=4, seed=2)
     f[2], p[2] = 0.0, 0.0                      # an all-zero item
     want = captioner_logits(params, cfg.model, jnp.asarray(f),
                                jnp.asarray(p), jnp.asarray(c),
-                               use_pallas=use_kernel)
+                               use_pallas=use_pallas)
     got = model.logits(torch.from_numpy(f), torch.from_numpy(p),
-                       torch.from_numpy(c), use_kernel=use_kernel)
+                       torch.from_numpy(c))
     assert got.shape == (4, cfg.model.max_length - 1, cfg.model.num_vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
@@ -56,7 +75,7 @@ def test_losses_match_jax(cfg_name, tiny_cfg, flagship_tiny_cfg):
     cfg = _cfg(cfg_name, tiny_cfg, flagship_tiny_cfg)
     params, model = port_model(cfg, seed=3)
     f, p, c = make_fake_batch(cfg, batch=3, seed=4)
-    logits = model.logits(f, p, c, use_kernel=True)
+    logits = model.logits(f, p, c)
     targets = torch.from_numpy(c[:, 1:])
     ce = TC.cross_entropy_ignore_pad(logits, targets, cfg.model.pad_idx)
     want_ce = JC.cross_entropy_ignore_pad(jnp.asarray(logits.numpy()),
@@ -82,7 +101,7 @@ def test_bf16_compute_close_to_f32(tiny_cfg):
     f, p, c = make_fake_batch(tiny_cfg, batch=3, seed=0)
     targets = torch.from_numpy(c[:, 1:])
     l32 = TC.cross_entropy_ignore_pad(m32.logits(f, p, c), targets).item()
-    logits16 = m16.logits(f, p, c, use_kernel=True)
+    logits16 = m16.logits(f, p, c)
     assert logits16.dtype == torch.float32
     l16 = TC.cross_entropy_ignore_pad(logits16, targets).item()
     assert np.isfinite(l16)

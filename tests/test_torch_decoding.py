@@ -36,8 +36,8 @@ def test_greedy_matches_jax(cfg_name, tiny_cfg, flagship_tiny_cfg):
     want_tok, want_attn = JD.greedy_decode(
         params, cfg.model, jnp.asarray(f), jnp.asarray(p), use_pallas=True,
         return_attention=True)
-    got_tok, got_attn = TD.greedy_decode(model, f, p, use_kernel=True,
-                                         return_attention=True, device="cpu")
+    got_tok, got_attn = TD.greedy_decode(model, f, p, return_attention=True,
+                                         device="cpu")
     assert got_tok.shape == (5, cfg.model.max_length + 1)
     np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
     np.testing.assert_array_equal(got_tok[3].numpy(), got_tok[0].numpy())
@@ -60,8 +60,7 @@ def test_beam_matches_jax(cfg_name, score_mode, stop_at_end, tiny_cfg,
                           beam_size=3, score_mode=score_mode,
                           use_pallas=True, stop_at_end=stop_at_end)
     got = TD.beam_search(model, f, p, beam_size=3, score_mode=score_mode,
-                         use_kernel=True, stop_at_end=stop_at_end,
-                         device="cpu")
+                         stop_at_end=stop_at_end, device="cpu")
     assert got.shape == (5, cfg.model.max_length)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 

@@ -279,7 +279,7 @@ def test_resumable_manifest_invalidated_on_config_change(tmp_path):
     assert run(feature_mode="crop", compute_dtype=torch.bfloat16) == 2
     assert run(feature_mode="roi", compute_dtype=torch.bfloat16) == 2
     assert run(feature_mode="roi", compute_dtype=torch.bfloat16,
-               device="cpu", use_kernel=False, batch_size=7) == 0
+               device="cpu", batch_size=7) == 0
     assert run(feature_mode="roi", compute_dtype=torch.float32) == 2
     with pytest.raises(TypeError, match="cannot be fingerprinted"):
         run(feature_mode="roi", generator=torch.Generator())

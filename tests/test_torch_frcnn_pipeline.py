@@ -12,6 +12,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from image_caption_tpu import main as JMAIN
 from image_caption_tpu.config import get_preset as jax_preset
@@ -122,13 +123,15 @@ def batch_run(weights):
     return (canv, metas, sizes), [np.asarray(t) for t in want]
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
-def test_extract_features_frcnn_matches_jax(use_kernel, weights, batch_run):
+@pytest.mark.parametrize("as_tensors", [False, True])
+def test_extract_features_frcnn_matches_jax(as_tensors, weights, batch_run):
+    """numpy inputs, or CPU tensors (as a caller holding them passes)."""
     _, _, tx = weights
     inputs, want = batch_run
-    got = TP.extract_features_frcnn(tx, *inputs, num_objects=6, canvas=256,
-                                    crop_size=64, use_kernel=use_kernel,
-                                    device="cpu")
+    args = ([torch.from_numpy(np.ascontiguousarray(a)) for a in inputs]
+            if as_tensors else inputs)
+    got = TP.extract_features_frcnn(tx, *args, num_objects=6, canvas=256,
+                                    crop_size=64, device="cpu")
     _compare(got, want)
     feats, poss, boxes = (t.numpy() for t in got)
     assert feats.shape == (2, 7, 2048) and poss.shape == (2, 7, 95)

@@ -89,9 +89,9 @@ def test_layer_norm_matches_jax():
     _close(m(torch.from_numpy(x)), JL.layer_norm(p, jnp.asarray(x)))
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("need_weights", [True, False])
 @pytest.mark.parametrize("with_mask", [False, True])
-def test_mha_matches_jax(with_mask, use_kernel):
+def test_mha_matches_jax(with_mask, need_weights):
     p = JL.init_mha(jax.random.PRNGKey(1), D, D, D, HEADS)
     m = _load(TL.MultiHeadAttention(D, D, D, HEADS, generator=_gen()),
               _mha_sd(p))
@@ -105,9 +105,9 @@ def test_mha_matches_jax(with_mask, use_kernel):
     got, got_attn = m(torch.from_numpy(q), torch.from_numpy(kv),
                       torch.from_numpy(kv),
                       torch.from_numpy(mask) if with_mask else None,
-                      use_kernel=use_kernel, need_weights=not use_kernel)
+                      need_weights=need_weights)
     _close(got, want)
-    if not use_kernel:
+    if need_weights:
         _close(got_attn, want_attn)
 
 
@@ -134,7 +134,7 @@ def test_encoder_block_matches_jax():
                                non_pad_mask=jnp.asarray(non_pad),
                                attention_mask=jnp.asarray(mask))
     got, _ = m(torch.from_numpy(x), non_pad_mask=torch.from_numpy(non_pad),
-               attention_mask=torch.from_numpy(mask.copy()), use_kernel=True,
+               attention_mask=torch.from_numpy(mask.copy()),
                need_weights=False)
     _close(got, want)
 

@@ -75,11 +75,9 @@ def _compare(got, want):
     assert np.abs(gf - wf).max() <= 1e-4 * np.abs(wf).max()  # features
 
 
-@pytest.mark.parametrize("cap_half,max_obj,use_kernel", [
-    (True, None, True), (True, 3, True), (False, None, False),
-    (False, 2, True)])
-def test_extract_features_batch_matches_jax(cap_half, max_obj, use_kernel,
-                                            extractors):
+@pytest.mark.parametrize("cap_half,max_obj", [
+    (True, None), (True, 3), (False, None), (False, 2)])
+def test_extract_features_batch_matches_jax(cap_half, max_obj, extractors):
     jp, tp = extractors
     canv, metas, sizes = _square(0)
     kw = dict(num_objects=8, crop_size=64, cap_half=cap_half, max_obj=max_obj)
@@ -88,13 +86,24 @@ def test_extract_features_batch_matches_jax(cap_half, max_obj, use_kernel,
                                      compute_dtype=jnp.float32, **kw)
     got = TP.extract_features_batch(tp, canv, metas, sizes,
                                     compute_dtype=torch.float32,
-                                    use_kernel=use_kernel, device="cpu", **kw)
+                                    device="cpu", **kw)
     _compare(got, want)
     feats, poss, _ = got
     np.testing.assert_array_equal(poss[:, 0, :4].numpy(), [[0, 0, 1, 1]] * 2)
     assert bool((poss[:, 0, 4:] == 0).all())
     if max_obj is not None:          # two position rows survive
         assert bool((poss[:, 2:] == 0).all())
+
+
+def test_extract_features_batch_takes_use_kernel_true_only(extractors):
+    """The keyword stays for callers that pass ``use_kernel=True``; the
+    device picks the ResNet route, so ``False`` is refused."""
+    _, tp = extractors
+    canv, metas, sizes = _square(0)
+    with pytest.raises(ValueError, match="device picks the ResNet route"):
+        TP.extract_features_batch(tp, canv, metas, sizes, num_objects=8,
+                                  crop_size=64, use_kernel=False,
+                                  device="cpu")
 
 
 def test_rect_letterbox_matches_jax(extractors):

@@ -1,7 +1,10 @@
 """The port's ResNet against the JAX package's, weights carried across with
-``resnet_state_from_jax_params``: global features on both routes (plain
-convs, and identity runs through ``fused_stage``), the grouping of identity
-runs, and the torchvision state_dict import."""
+``resnet_state_from_jax_params``: global features (identity runs through
+``fused_stage``) against both JAX routes (plain convs, and its Pallas
+kernel in interpret mode), the grouping of identity runs, and the
+torchvision state_dict import."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -9,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from image_caption_tpu.vision import pallas_bottleneck as JPB
 from image_caption_tpu.vision import resnet as JR
 from image_caption_tpu_torch.utils.weights import resnet_state_from_jax_params
 from image_caption_tpu_torch.vision import resnet as TR
@@ -30,35 +34,72 @@ def _images(seed, n=2, size=64):
         np.float32)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
+# this file's own jit: a trace with the Pallas route stays out of the JAX
+# package's ``resnet_features_jit`` cache
+jax_features = jax.jit(JR.resnet_features,
+                       static_argnames=("compute_dtype", "use_pallas"))
+
+
+@pytest.fixture
+def jax_pallas(monkeypatch):
+    """``use_pallas=True`` takes the JAX package's fused bottleneck route
+    on the CPU: its probe (off on a CPU backend) passed, its Pallas kernel
+    run in interpret mode."""
+    monkeypatch.setattr(JPB, "bottleneck_pallas_available", lambda: True)
+    monkeypatch.setattr(JPB, "fused_stage",
+                        functools.partial(JPB.fused_stage, interpret=True))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("stages", [(1, 1, 1, 1), (2, 2)])
-def test_features_match_jax_f32(stages, use_kernel, nets):
+def test_features_match_jax_f32(stages, use_pallas, nets, jax_pallas):
     jp, tp = nets[stages]
     x = _images(0)
-    want = np.asarray(JR.resnet_features_jit(jp, jnp.asarray(x)))
-    got = TR.resnet_features(tp, torch.from_numpy(x), use_kernel=use_kernel)
+    want = np.asarray(jax_features(jp, jnp.asarray(x), use_pallas=use_pallas))
+    got = TR.resnet_features(tp, torch.from_numpy(x))
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_features_match_jax_bf16(use_kernel, nets):
-    """bf16 compute: the plain route is the JAX route's arithmetic; the
-    kernel route's f32 epilogues round elsewhere.  3e-2 x max|ref|."""
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_features_match_jax_bf16(use_pallas, nets, jax_pallas):
+    """bf16 compute: the port's identity runs (``stage_reference`` on the
+    CPU) keep f32 epilogues, as kernel #4 does, and so round elsewhere
+    than the JAX package's XLA route.  3e-2 x max|ref|."""
     jp, tp = nets[(2, 2)]
     x = _images(1)
-    want = np.asarray(JR.resnet_features_jit(jp, jnp.asarray(x),
-                                             compute_dtype=jnp.bfloat16))
+    want = np.asarray(jax_features(jp, jnp.asarray(x),
+                                   compute_dtype=jnp.bfloat16,
+                                   use_pallas=use_pallas))
     got = TR.resnet_features(tp, torch.from_numpy(x),
-                             compute_dtype=torch.bfloat16,
-                             use_kernel=use_kernel).numpy()
+                             compute_dtype=torch.bfloat16).numpy()
     assert np.abs(got - want).max() <= 3e-2 * np.abs(want).max()
 
 
+def test_resnet101_forward_calls_fused_stage_once_a_run(monkeypatch):
+    """A ResNet-101 forward on the CPU (random weights, one 32-px image)
+    hands each of its four identity runs (2, 3, 22 and 2 blocks) to
+    ``fused_stage``, whose CPU route is ``stage_reference``."""
+    runs = []
+    real = TR.fused_stage
+
+    def spy(x, w1, *rest):
+        runs.append(w1.shape[0])
+        return real(x, w1, *rest)
+
+    monkeypatch.setattr(TR, "fused_stage", spy)
+    params = TR.init_resnet(torch.Generator().manual_seed(0))
+    x = torch.randn(1, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    out = TR.resnet_features(params, x)
+    assert runs == [2, 3, 22, 2]
+    assert out.shape == (1, 2048) and bool(torch.isfinite(out).all())
+
+
 def test_identity_runs_of_resnet101_go_through_one_call_each(monkeypatch):
-    """ResNet-101's identity runs are 2, 3, 22 and 2 blocks: with
-    use_kernel each is one fused_stage call; the first block of each stage
-    (strided or downsampling) takes the plain route either way."""
+    """ResNet-101's identity runs are 2, 3, 22 and 2 blocks: each is one
+    fused_stage call; the first block of each stage (strided or
+    downsampling) takes the plain route, as does every block of
+    ``resnet_feature_maps``."""
     layers = [[({"downsample": {}} if b == 0 else {}) for b in range(n)]
               for n in TR.RESNET101_STAGES]
     params = {"stem": {"conv": None, "bn": None}, "layers": layers}
@@ -70,10 +111,10 @@ def test_identity_runs_of_resnet101_go_through_one_call_each(monkeypatch):
     monkeypatch.setattr(TR, "stack_identity_blocks", lambda run: (len(run),))
     monkeypatch.setattr(TR, "fused_stage", lambda x, n: runs.append(n) or x)
     x = torch.zeros(1, 16, 16, 3)
-    TR.resnet_features(params, x, use_kernel=True)
+    TR.resnet_features(params, x)
     assert runs == [2, 3, 22, 2] and plain == [1, 2, 2, 2]
     runs.clear(), plain.clear()
-    TR.resnet_features(params, x, use_kernel=False)
+    TR.resnet_feature_maps(params, x)
     assert runs == [] and len(plain) == sum(TR.RESNET101_STAGES)
 
 

@@ -212,7 +212,7 @@ def test_frcnn_extraction_counts_its_crops():
     with cpu_profile():
         TP.extract_features_frcnn(tiny_frcnn_extractor(), *canvases(1),
                                   num_objects=4, canvas=CANVAS,
-                                  use_kernel=False, device="cpu")
+                                  device="cpu")
     recs = debug.records()
     assert recs["counters"]["extract.crops"] == 2 * 5
     assert 2 <= recs["counters"]["extract.crops_valid"] <= 10

@@ -1,7 +1,7 @@
 """The port's train step against the JAX package's ``train_step`` (all
-dropout off, the JAX weights carried over), on both attention routes and
-for the cross-entropy and focal losses; the K-step loop; and the dropout
-sites, rates and keys."""
+dropout off, the JAX weights carried over), at two batch sizes and for the
+cross-entropy and focal losses; the K-step loop; and the dropout sites,
+rates and keys."""
 
 import functools
 
@@ -48,10 +48,10 @@ def _cfg(name, tiny_cfg):
     return cfg.with_overrides(**SMALL, **NO_DROPOUT)
 
 
-def _batches(cfg, n=STEPS):
+def _batches(cfg, n=STEPS, batch=4):
     out = []
     for s in range(n):
-        f, p, c = make_fake_batch(cfg, batch=4, seed=10 + s)
+        f, p, c = make_fake_batch(cfg, batch=batch, seed=10 + s)
         if s == 0:
             f[2], p[2] = 0.0, 0.0          # an all-zero image
         out.append((f, p, c))
@@ -70,15 +70,16 @@ def _port_state(cfg, params):
 _JAX_RUNS = {}
 
 
-def _jax_run(name, cfg):
-    """JAX reference, once per config: initial params, the deterministic
-    loss of batch 0 (``eval_step``'s) and its gradients (pad row zeroed, as
-    the step applies them), the losses of 3 jitted ``train_step`` calls and
-    the params after them."""
-    if name in _JAX_RUNS:
-        return _JAX_RUNS[name]
+def _jax_run(name, cfg, batch=4):
+    """JAX reference, once per config and batch size: initial params, the
+    deterministic loss of batch 0 (``eval_step``'s) and its gradients (pad
+    row zeroed, as the step applies them), the losses of 3 jitted
+    ``train_step`` calls and the params after them."""
+    if (name, batch) in _JAX_RUNS:
+        return _JAX_RUNS[name, batch]
     state = JS.create_train_state(cfg, jax.random.PRNGKey(0))
-    batches = [tuple(jnp.asarray(x) for x in b) for b in _batches(cfg)]
+    batches = [tuple(jnp.asarray(x) for x in b)
+               for b in _batches(cfg, batch=batch)]
     grad_fn = jax.jit(jax.value_and_grad(lambda p, b: JSTEP.eval_step(
         p, b, cfg=cfg)["loss"]))
     loss0, grads = grad_fn(state.params, batches[0])
@@ -90,22 +91,22 @@ def _jax_run(name, cfg):
     for b in batches:
         st, m = step(st, b, jax.random.PRNGKey(1))
         losses.append(float(m["loss"]))
-    _JAX_RUNS[name] = (jax.device_get(state.params), jax.device_get(grads),
-                       losses, jax.device_get(st.params), float(loss0))
-    return _JAX_RUNS[name]
+    _JAX_RUNS[name, batch] = (jax.device_get(state.params),
+                              jax.device_get(grads), losses,
+                              jax.device_get(st.params), float(loss0))
+    return _JAX_RUNS[name, batch]
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("batch", [4, 3])
 @pytest.mark.parametrize("name", ["tiny", "focal"])
-def test_train_step_matches_jax(name, use_kernel, tiny_cfg):
+def test_train_step_matches_jax(name, batch, tiny_cfg):
     cfg = _cfg(name, tiny_cfg)
-    params, grads, want_losses, want_params, _ = _jax_run(name, cfg)
+    params, grads, want_losses, want_params, _ = _jax_run(name, cfg, batch)
     st = _port_state(cfg, params)
     want_grads = state_dict_from_jax_params(grads, cfg.model)
     losses = []
-    for i, b in enumerate(_batches(cfg)):
-        m = TSTEP.train_step(st, TSTEP.to_device(b, "cpu"), seed=0,
-                             use_kernel=use_kernel)
+    for i, b in enumerate(_batches(cfg, batch=batch)):
+        m = TSTEP.train_step(st, TSTEP.to_device(b, "cpu"), seed=0)
         losses.append(m["loss"].item())
         if i == 0:
             for n, p in st.model.named_parameters():
@@ -129,10 +130,9 @@ def test_eval_step_matches_jax(name, tiny_cfg):
     params, want = _jax_run(name, cfg)[0], _jax_run(name, cfg)[4]
     st = _port_state(cfg, params)
     b = TSTEP.to_device(_batches(cfg)[0], "cpu")
-    for use_kernel in (True, False):
-        got = TSTEP.eval_step(st.model, b, use_kernel=use_kernel)["loss"]
-        assert not got.requires_grad
-        np.testing.assert_allclose(got.item(), want, rtol=2e-4)
+    got = TSTEP.eval_step(st.model, b)["loss"]
+    assert not got.requires_grad
+    np.testing.assert_allclose(got.item(), want, rtol=2e-4)
 
 
 def test_train_steps_equal_single_steps_with_dropout(tiny_cfg):
