@@ -47,7 +47,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
     graphs); the first step again with the plain version in the kernel's
     place and the kernel beside it at each of the 27 layers, on the same
     inputs (the card tests' tolerance); the logits of both passes and the
-    rows a router near-tie sent to other experts, printed;
+    rows a router near-tie sent to other experts, printed; kernel #6's
+    launches on each batch (78 and 26 an entry);
+5d. experts glue: kernel #6 (``csrc/experts_glue.cu``, bf16) at a decode
+    step's 1024 x 6 routed rows and the prefill's 38,912 x 6, on the card
+    tests' inputs: ``silu_up`` bit for bit and ``combine`` within the card
+    tests' tolerance of the parent's chain; each entry's device time
+    beside its byte bound, its plain version's and the parent's chain's,
+    cycling two input sets;
 6. slice (serving): the flagship captioner at full width, random weights
    from ``torch.Generator`` seed 0, decodes a 70-image split greedily and
    with beam 3 through ``decode_split``; the kernel launch counts are read
@@ -801,18 +808,18 @@ MLA_KEEP = 19 / 37
 MLA_SETS = 4
 
 
-def card_tests():
-    """The module of kernel #5's card tests, loaded from its file
-    (``tests/test_torch_latent_attention.py``; another ``tests`` package
-    may come first on the path): phase 5b takes its input builder, its copy
-    of the parent's chain and its tolerance."""
+def card_tests(name: str = "test_torch_latent_attention"):
+    """The module of a kernel's card tests, loaded from its file
+    (``tests/<name>.py``; another ``tests`` package may come first on the
+    path): phase 5b takes kernel #5's inputs (``case``), its copy of the
+    parent's chain and its tolerance, phase 5d kernel #6's
+    (``test_torch_experts_glue``)."""
     import importlib.util
-    mod = sys.modules.get("test_torch_latent_attention")
+    mod = sys.modules.get(name)
     if mod is None:
         spec = importlib.util.spec_from_file_location(
-            "test_torch_latent_attention",
-            os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "tests", "test_torch_latent_attention.py"))
+            name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", f"{name}.py"))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         sys.modules[spec.name] = mod
@@ -932,7 +939,9 @@ def drive_kimi_decode(card: str) -> int:
     cell's region features through ``serve.decode_split``; kernel #5's
     launches are counted over that batch (the first step eager, then each
     segment captured; the later steps replay graphs and launch nothing
-    through the wrapper) and over a second batch on the same model (none).
+    through the wrapper) and over a second batch on the same model (none);
+    kernel #6's two entries likewise (one each a MoE layer in each batch's
+    eager prefill, at the first batch's eager first step and at capture).
     Then the first step again, eagerly, from the same features and token,
     with the plain version in the kernel's place: at each layer the kernel
     runs on the same inputs too and must lie within the card tests'
@@ -940,8 +949,9 @@ def drive_kimi_decode(card: str) -> int:
     logits beside this pass's are printed, not held to a limit: a weight P
     one bf16 ulp apart in a few rows can flip a router's near-tie, which
     changes that row's experts and logits (the rows whose experts moved
-    are counted).  Returns the first batch's launches; the caller collects
-    the model (its step state holds cycles)."""
+    are counted).  Returns the first batch's launches of #5 and of each
+    entry of #6; the caller collects the model (its step state holds
+    cycles)."""
     import torch
     from benchmark import harness
     from benchmark.data.split import make_split
@@ -951,6 +961,7 @@ def drive_kimi_decode(card: str) -> int:
     from image_caption_tpu_torch import serve
     from image_caption_tpu_torch.config import START_IDX
     from image_caption_tpu_torch.models import lm as LM
+    from image_caption_tpu_torch.ops import experts as EX
     from image_caption_tpu_torch.ops import latent_attention as LA
     cell = harness.resolve(KIMI_CELL)
     c, b = cell.config, cell.traffic["batch"]
@@ -978,25 +989,39 @@ def drive_kimi_decode(card: str) -> int:
             first["idx"] = {i: x.sort(-1)[0] for i, x in st.idx.items()}
         return out
     model.run_step = tapped
+    glue = (EX.silu_up, EX.combine)
     LA.latent_attention.launches = 0
+    for fn in glue:
+        fn.launches = 0
     t0 = time.perf_counter()
     serve.decode_split(model, cfg, split_of(feats, poss, b), b, words,
                        device="cuda")
     launches = LA.latent_attention.launches
+    glue_first = {fn.__name__: fn.launches for fn in glue}
     t1 = time.perf_counter()
     serve.decode_split(model, cfg, split_of(feats, poss, b), b, words,
                        device="cuda")
     again = LA.latent_attention.launches - launches
+    glue_again = {fn.__name__: fn.launches - glue_first[fn.__name__]
+                  for fn in glue}
     t2 = time.perf_counter()
     del model.run_step
     layers = len(model.layers)
+    moe = layers - c["first_k_dense_replace"]
     print(f"kimi decode: kernel #5 launched {launches} times over the "
           f"first batch of {b} ({t1 - t0:.2f} s, captures included), "
-          f"{again} over the second ({t2 - t1:.2f} s) [{card}]", flush=True)
+          f"{again} over the second ({t2 - t1:.2f} s); kernel #6 "
+          f"{glue_first} and {glue_again} [{card}]", flush=True)
     if launches != 2 * layers or again != 0:
         raise AssertionError(f"kernel #5: {launches} and {again} launches, "
                              f"expected {2 * layers} (the eager first step "
                              f"and the capture) and 0")
+    if set(glue_first.values()) != {3 * moe} \
+            or set(glue_again.values()) != {moe}:
+        raise AssertionError(f"kernel #6: {glue_first} and {glue_again} "
+                             f"launches, expected {3 * moe} each (the "
+                             f"prefill, the eager first step, the capture) "
+                             f"and {moe} (the prefill)")
     # the first step again, eager, the plain version in the kernel's place
     # and the kernel beside it on the same inputs
     tests = card_tests()
@@ -1042,7 +1067,118 @@ def drive_kimi_decode(card: str) -> int:
           f"some layer, {int((differ & moved).sum())} of them differ; the "
           f"rows routed alike differ by at most "
           f"{float(kept.max()) if len(kept) else 0.0:.3e}", flush=True)
-    return launches
+    return launches, glue_first
+
+
+# ---------------------------------------------------------------------------
+# Phase 5d: the routed experts' glue (csrc/experts_glue.cu)
+# ---------------------------------------------------------------------------
+
+# the kimi_vl_a3b cell's calls: a decode step's 1024 tokens and the
+# prefill's 1024 x 38, six rows a token, hidden 2,048, expert width 1,408
+GLUE_TOKENS = {"step": 1024, "prefill": 1024 * 38}
+# input sets a timed run cycles through: two of the step's h (69 MB)
+# outrun the 50 MB L2
+GLUE_SETS = 2
+
+
+def check_experts_glue() -> float:
+    """Each entry against the plain version on the card at the step's and
+    the prefill's shape: ``silu_up`` bit for bit, ``combine`` within the
+    card tests' tolerance of the parent's chain (``combine_error``).
+    Returns ``combine``'s largest error."""
+    import torch
+    from image_caption_tpu_torch.ops import experts as EX
+    tests = card_tests("test_torch_experts_glue")
+    worst = 0.0
+    for name, tokens in GLUE_TOKENS.items():
+        rows = tokens * tests.K
+        h = tests.silu_case(rows, tests.I, torch.bfloat16, "cuda",
+                            seed=tokens)
+        same = torch.equal(EX.silu_up(h), EX.silu_up_reference(h))
+        del h
+        y, inv, w, order = tests.combine_case(tokens, tests.K, tests.D,
+                                              torch.bfloat16, "cuda",
+                                              seed=tokens)
+        got, want = EX.combine(y, inv, w), tests.parent_combine(y, order, w)
+        share, differ = tests.combine_error(got, want, y, inv, w)
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        print(f"kernel check experts_glue {name} ({rows} rows) bf16: "
+              f"silu_up {'the same bits as' if same else 'DIFFERS from'} "
+              f"the plain version; combine max |kernel - parent's chain| "
+              f"{err:.3e}, {differ} of {got.numel()} elements differ, the "
+              f"largest {share:.3f} of the tolerance", flush=True)
+        if not same or share > 1.0:
+            raise AssertionError(f"kernel #6 at the {name} shape: silu_up "
+                                 f"same bits {same}, combine at {share:.3f} "
+                                 f"of its tolerance")
+        del y, inv, w, order, got, want
+    return worst
+
+
+def glue_bound(nbytes: int) -> float:
+    """Ms to move ``nbytes`` at 3.35 TB/s (both entries are byte bound)."""
+    return 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def time_experts_glue(card: str):
+    """Each entry, its plain version and the parent's chain at the step's
+    and the prefill's shape, cycling ``GLUE_SETS`` input sets, beside its
+    byte bound.  ``silu_up``'s plain version is the parent's chain."""
+    import torch
+    from image_caption_tpu_torch.ops import experts as EX
+    tests = card_tests("test_torch_experts_glue")
+    rows = {"silu_up": {}, "combine": {}}
+
+    def cycling(fn, sets):
+        calls = [0]
+
+        def call():
+            calls[0] += 1
+            return fn(*sets[calls[0] % len(sets)])
+        return call
+    for name, tokens in GLUE_TOKENS.items():
+        r = tokens * tests.K
+        sets = [(tests.silu_case(r, tests.I, torch.bfloat16, "cuda",
+                                 seed=i),) for i in range(GLUE_SETS)]
+        plain = device_ms(cycling(EX.silu_up_reference, sets))
+        kernel = cycling(EX.silu_up, sets)
+        rows["silu_up"][name] = {
+            "shape": (r, 2 * tests.I), "ms": device_ms(kernel),
+            "call_ms": call_ms(kernel), "plain_ms": plain,
+            "library_ms": plain, "bytes": 3 * r * tests.I * 2}
+        del sets
+        sets = [tests.combine_case(tokens, tests.K, tests.D, torch.bfloat16,
+                                   "cuda", seed=i) for i in range(GLUE_SETS)]
+        kernel = cycling(EX.combine, [s[:3] for s in sets])
+        rows["combine"][name] = {
+            "shape": (tokens, tests.K, tests.D), "ms": device_ms(kernel),
+            "call_ms": call_ms(kernel),
+            "plain_ms": device_ms(cycling(EX.combine_reference,
+                                          [s[:3] for s in sets])),
+            "library_ms": device_ms(cycling(
+                tests.parent_combine, [(y, o, w) for y, _, w, o in sets])),
+            "bytes": (r * tests.D * 2 + r * 8 + tokens * tests.D * 2)}
+        del sets
+        for entry in ("silu_up", "combine"):
+            row = rows[entry][name]
+            row["bound_ms"] = glue_bound(row["bytes"])
+            row["bound_by"] = "bytes"
+            print(f"time experts_glue {entry} {name} {row['shape']} bf16: "
+                  f"kernel {row['ms']:.5f} ms on the device "
+                  f"({row['call_ms']:.5f} ms a call with its launch), bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bytes']} B): "
+                  f"{100 * row['bound_ms'] / row['ms']:.1f}% of it; plain "
+                  f"{row['plain_ms']:.5f} ms, the parent's chain "
+                  f"{row['library_ms']:.5f} ms [{card}]", flush=True)
+    return rows
+
+
+def drive_experts_glue(card: str):
+    """Phase 5d: (combine's largest error, the timed rows of each
+    entry)."""
+    return check_experts_glue(), time_experts_glue(card)
 
 
 # ---------------------------------------------------------------------------
@@ -4347,7 +4483,10 @@ def main() -> int:
     max_err_bneck["fused_stage"] = max(max_err_bneck["fused_stage"], err_f32)
     times_bneck["fused_stage"].update(rows_f32)
     max_err_mla, times_mla = drive_mla_decode(card)
-    kimi_launches = drive_kimi_decode(card)
+    kimi_launches, glue_launches = drive_kimi_decode(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    max_err_glue, times_glue = drive_experts_glue(card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4502,6 +4641,12 @@ def main() -> int:
               "none: the JAX package has no mla_moe captioner",
               {"kimi_decode": kimi_launches}, max_err_mla, times_mla,
               "pos62"),
+        *(entry(name, "image_caption_tpu_torch/csrc/experts_glue.cu",
+                "none: the JAX package has no mixture of experts",
+                {"kimi_decode": glue_launches[name]},
+                max_err_glue if name == "combine" else 0.0,
+                times_glue[name], "step")
+          for name in ("silu_up", "combine")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

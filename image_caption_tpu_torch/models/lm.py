@@ -73,7 +73,8 @@ step in about a hundred launches instead of thousands of kernels.
 Spans (``utils/debug``), each on the device: ``mla.attention`` a layer,
 ``moe.route``, ``moe.experts`` and ``moe.shared`` a MoE layer, on every
 call (prefill and each decode step, around each graph's replay); the
-counters ``moe.rows_routed`` and ``moe.experts_touched`` a MoE call.
+counters ``moe.rows_routed``, ``moe.experts_touched`` and, on CUDA,
+``moe.rows_fused`` a MoE call.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config, LMConfig, ModelConfig
+from ..ops import _build
 from ..ops.experts import grouped_experts
 from ..ops.latent_attention import latent_attention
 from ..utils.debug import annotate, count, recording
@@ -205,11 +207,15 @@ class MoE(nn.Module):
 
 
 def count_routed(rows: int, counts: torch.Tensor) -> None:
-    """The counters ``moe.rows_routed`` and ``moe.experts_touched`` (the
-    experts with a row, kept on the device) while a profiler records."""
+    """The counters ``moe.rows_routed``, ``moe.experts_touched`` (the
+    experts with a row, kept on the device) and ``moe.rows_fused`` (the
+    rows through kernel #6: on CUDA, all of them) while a profiler
+    records."""
     if recording():
         count("moe.rows_routed", rows)
         count("moe.experts_touched", counts > 0)
+        if counts.is_cuda:
+            count("moe.rows_fused", rows)
 
 
 class LatentCache(NamedTuple):
@@ -359,9 +365,12 @@ class LMCaptioner(nn.Module):
                         device: DeviceLike = None) -> "LMCaptioner":
         """The model over ``state`` moved to ``device`` in ``WEIGHT_DTYPE``
         (the router's correction bias in float32); tensors already there
-        in that dtype are used as they are, not copied."""
+        in that dtype are used as they are, not copied.  On CUDA the
+        model's two kernels (#5 and #6) are built first, both at once."""
         model = cls(cfg)
         device = resolve_device(device)
+        if device.type == "cuda":
+            _build.build(("mla_decode", "experts_glue"))
         model.load_state_dict(
             {k: v.to(device, torch.float32 if k.endswith(
                 "e_score_correction_bias") else WEIGHT_DTYPE)

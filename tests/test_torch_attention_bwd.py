@@ -239,7 +239,8 @@ def test_bwd_wrapper_rejects_dout_elsewhere():
 def test_build_lists_both_kernels():
     from image_caption_tpu_torch.ops import _build
     assert _build.KERNELS == ("fused_attention", "fused_attention_bwd",
-                              "fused_bottleneck", "mla_decode")
+                              "fused_bottleneck", "mla_decode",
+                              "experts_glue")
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()
         # the library's name carries a hash of the source

@@ -174,10 +174,11 @@ def test_grouped_experts_equal_the_per_expert_loop():
     w = torch.rand(n, k, generator=gen)
     w13 = torch.randn(e, 2 * i, d, generator=gen)
     w2 = torch.randn(e, d, i, generator=gen)
-    order, counts, offs = sort_rows(idx, e)
+    order, inv, counts, offs = sort_rows(idx, e)
     assert counts.dtype == torch.int32 and int(counts[5]) == 0
     assert offs.tolist() == torch.cumsum(counts, 0).tolist()
     assert (idx.reshape(-1)[order].diff() >= 0).all()
+    assert torch.equal(order[inv.long()], torch.arange(n * k))
     got, rows = grouped_experts(x, idx, w, w13, w2)
     assert torch.equal(rows, counts)
     assert torch.allclose(got, RK.experts(x, idx, w, w13, w2), atol=1e-4,
